@@ -1,0 +1,257 @@
+"""The immutable DynaWarp sketch (§3.3/§4.2): MPHF + signatures +
+compressed static function + BIC posting lists, in a single flat buffer.
+
+Build pipeline (host):
+  SealedContent -> rank lists by reference count -> MPHF over fingerprints
+  -> CSF(minimal hash -> rank) -> signature bits -> BIC bit stream.
+
+Query pipeline:
+  * host   : scalar / numpy probes (Alg. 3 inner loop)
+  * device : the CUDA ``sketch_probe`` MPHF kernel, then torch ops for the
+             signature check, the CSF rank and the gather of the optional
+             dense bitmap planes that carry boolean algebra across query
+             tokens on the device.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from . import bic
+from .bitio import np_peek_bits, pack_bitmap_planes, pack_fixed_width
+from .csf import CompressedStaticFunction, _peek, build_csf, csf_get_torch
+from .hashing import (np_seeded_hash32, scalar_seeded_hash32,
+                      token_fingerprint, torch_seeded_hash32)
+from .mphf import MPHF, build_mphf, u32_tensor
+from .mutable_sketch import SealedContent
+
+SIG_SEED = 0x516E4715
+DEFAULT_SIG_BITS = 8
+DEFAULT_PLANE_BUDGET = 64 << 20  # bytes of optional device bitmap planes
+
+
+@dataclass
+class ImmutableSketch:
+    mphf: MPHF
+    csf: CompressedStaticFunction
+    signatures: np.ndarray      # packed sig_bits-wide signatures by min-hash
+    sig_bits: int
+    bic_bits: np.ndarray        # u32 BIC stream of all deduplicated lists
+    bic_offsets: np.ndarray     # (L+1,) int64 bit offsets (rank -> offset)
+    bic_counts: np.ndarray      # (L,) int64 postings per list
+    n_postings: int
+    n_tokens: int
+    planes: np.ndarray | None = None   # (L, ceil(P/32)) u32 device bitmaps
+    stats: dict = field(default_factory=dict)
+    # Retained SealedContent (full fingerprints + lists) when the segment
+    # must stay mergeable by the cold-segment compactor; MPHFs alone are
+    # not mergeable.  Excluded from size accounting (host-side scratch).
+    sealed_source: SealedContent | None = None
+
+    # ------------------------------------------------------------------ sizes
+    @property
+    def n_lists(self) -> int:
+        return len(self.bic_counts)
+
+    def size_bits(self, *, include_planes: bool = False) -> int:
+        total = (self.mphf.size_bits() + self.csf.size_bits()
+                 + self.signatures.size * 32
+                 + self.bic_bits.size * 32
+                 + self.bic_offsets.size * 64 + self.bic_counts.size * 16)
+        if include_planes and self.planes is not None:
+            total += self.planes.size * 32
+        return total
+
+    def size_bytes(self, **kw) -> int:
+        return (self.size_bits(**kw) + 7) // 8
+
+    # ------------------------------------------------------------------ query
+    def probe_fingerprints_np(self, fps: np.ndarray
+                              ) -> tuple[np.ndarray, np.ndarray]:
+        """Batched membership probe.  Returns (present bool, rank int64);
+        rank is only meaningful where present."""
+        fps = np.asarray(fps, dtype=np.uint32)
+        idx, absent = self.mphf.lookup_np(fps)
+        idx = np.clip(idx, 0, max(self.n_tokens - 1, 0))
+        sig = self._sig_at_np(idx)
+        want = np_seeded_hash32(fps, SIG_SEED) & np.uint32((1 << self.sig_bits) - 1)
+        present = (~absent) & (sig == want) & (self.n_tokens > 0)
+        rank = np.where(present, self.csf.get_np(idx), 0)
+        return present, rank
+
+    def probe_fp_scalar(self, fp: int) -> tuple[bool, int]:
+        """Single-fingerprint probe on the python-int fast path (Alg. 3
+        inner loop): MPHF -> signature -> CSF rank, with no per-call numpy
+        dispatch."""
+        from .bitio import peek_bits
+        if self.n_tokens == 0:
+            return False, 0
+        idx, absent = self.mphf.lookup_scalar(fp)
+        if absent:
+            return False, 0
+        idx = min(idx, self.n_tokens - 1)
+        sig = peek_bits(self.signatures, idx * self.sig_bits, self.sig_bits)
+        want = scalar_seeded_hash32(fp, SIG_SEED) & ((1 << self.sig_bits) - 1)
+        if sig != want:
+            return False, 0
+        return True, self.csf.get_scalar(idx)
+
+    def _sig_at_np(self, idx: np.ndarray) -> np.ndarray:
+        bitpos = idx.astype(np.int64) * self.sig_bits
+        return np_peek_bits(self.signatures, bitpos,
+                            np.full(idx.shape, self.sig_bits, np.int64))
+
+    def postings_for_rank(self, rank: int) -> np.ndarray:
+        return bic.decode_list(self.bic_bits, self.bic_offsets,
+                               self.bic_counts, int(rank), self.n_postings)
+
+    def query_token(self, token: bytes) -> np.ndarray | None:
+        """Host single-token query: None if definitely/probably absent."""
+        fp = np.asarray([token_fingerprint(token)], dtype=np.uint32)
+        present, rank = self.probe_fingerprints_np(fp)
+        if not present[0]:
+            return None
+        return self.postings_for_rank(int(rank[0]))
+
+    # ---------------------------------------------------------------- device
+    def device_arrays(self, device) -> dict:
+        """Every flat buffer of the device probe on ``device``, plus the
+        python-int clip bounds the probe reads (``n_tokens1``, ``n_lists1``,
+        ``csf_n1``, ``fb_count``)."""
+        arrs = dict(self.mphf.device_arrays(device))
+        arrs.update({f"csf_{k}": v
+                     for k, v in self.csf.device_arrays(device).items()})
+        arrs["signatures"] = u32_tensor(self.signatures, device)
+        arrs["n_tokens1"] = max(self.n_tokens - 1, 0)
+        if self.planes is not None:
+            arrs["planes"] = u32_tensor(self.planes, device)
+            arrs["n_lists1"] = max(self.n_lists - 1, 0)
+        return arrs
+
+    def device_cache(self, device) -> dict:
+        """Memoized :meth:`device_arrays` — the per-segment device cache of
+        the wave query engine.  The flat sketch buffers are uploaded on
+        first use and reused by every later wave; asking for another device
+        replaces the memo."""
+        device = torch.device(device)
+        memo = getattr(self, "_device_cache", None)
+        if memo is None or memo[0] != device:
+            memo = self._device_cache = (device, self.device_arrays(device))
+        return memo[1]
+
+    def has_device_cache(self, device) -> bool:
+        """Whether this segment's flat buffers are staged on ``device``."""
+        memo = getattr(self, "_device_cache", None)
+        return memo is not None and memo[0] == torch.device(device)
+
+    def drop_device_cache(self) -> None:
+        """Free the memoized device arrays (segments merged away by
+        compaction)."""
+        self._device_cache = None
+
+    def device_bytes(self) -> int:
+        """Bytes of the staged device buffers (0 when nothing is staged)."""
+        memo = getattr(self, "_device_cache", None)
+        if memo is None:
+            return 0
+        return sum(v.numel() * v.element_size() for v in memo[1].values()
+                   if isinstance(v, torch.Tensor))
+
+    def match_bitmap_torch(self, fps: torch.Tensor, arrs: dict
+                           ) -> torch.Tensor:
+        """(Q, W) posting bitmaps (int32-viewed u32) per query fingerprint;
+        absent tokens yield all-zero rows.  Requires bitmap planes."""
+        if self.planes is None:
+            raise ValueError("bitmap planes were not built for this sketch")
+        return match_bitmap_from(fps, arrs, sig_bits=self.sig_bits)
+
+
+def _resolve_probe(fps, idx, absent, arrs, sig_bits: int):
+    """Minimal-hash -> (present, rank): signature check + CSF decode.  Every
+    bound comes from ``arrs``."""
+    idx = torch.clamp(idx.to(torch.int64), 0, arrs["n_tokens1"])
+    sig = _peek(arrs["signatures"], idx * sig_bits, sig_bits)
+    want = torch_seeded_hash32(fps, SIG_SEED) & ((1 << sig_bits) - 1)
+    present = ~absent & (sig == want)
+    csf_arrs = {k[len("csf_"):]: v for k, v in arrs.items()
+                if k.startswith("csf_")}
+    rank = torch.where(present, csf_get_torch(idx, csf_arrs), 0)
+    return present, rank
+
+
+def probe_tokens_from(fps, arrs, *, sig_bits: int):
+    """THE device probe code path: the ``sketch_probe`` MPHF kernel (its
+    plain version on CPU tensors) + signature check + CSF rank, over an
+    :meth:`ImmutableSketch.device_arrays` dict.  ``fps`` holds u32
+    fingerprints as int32 bits or as int64 values."""
+    from ..kernels.sketch_probe.ops import mphf_probe_arrs
+    idx, absent = mphf_probe_arrs(fps.to(torch.int32), arrs)
+    return _resolve_probe(fps, idx, absent, arrs, sig_bits)
+
+
+def match_bitmap_from(fps, arrs, *, sig_bits: int):
+    """(Q, W) int32-viewed u32 posting bitmaps via :func:`probe_tokens_from`
+    + plane gather; absent tokens (and all-zero padded rows) yield zero
+    rows."""
+    present, rank = probe_tokens_from(fps, arrs, sig_bits=sig_bits)
+    rows = arrs["planes"][torch.clamp(rank, 0, arrs["n_lists1"])]
+    return torch.where(present[:, None], rows, 0)
+
+
+# ---------------------------------------------------------------------- build
+def build_immutable(content: SealedContent, *,
+                    sig_bits: int = DEFAULT_SIG_BITS,
+                    plane_budget_bytes: int = DEFAULT_PLANE_BUDGET,
+                    gamma: float = 2.0) -> ImmutableSketch:
+    n_tokens = len(content.fps)
+    n_lists = len(content.lists)
+    # 1. rank lists by reference count, descending (§3.3)
+    order = np.argsort(-content.refcounts, kind="stable")
+    rank_of_list = np.empty(n_lists, dtype=np.int64)
+    rank_of_list[order] = np.arange(n_lists)
+    token_ranks = rank_of_list[content.list_ids] if n_tokens else \
+        np.empty(0, np.int64)
+
+    # 2. MPHF over fingerprints
+    mphf = build_mphf(content.fps, gamma=gamma)
+    if n_tokens:
+        idx, absent = mphf.lookup_np(content.fps)
+        assert not absent.any(), "MPHF must resolve every construction key"
+        assert len(np.unique(idx)) == n_tokens, "MPHF must be injective"
+    else:
+        idx = np.empty(0, np.int64)
+
+    # 3. CSF of ranks in minimal-hash order
+    values_mh = np.zeros(max(n_tokens, 1), dtype=np.int64)
+    values_mh[idx] = token_ranks
+    csf = build_csf(values_mh[:n_tokens] if n_tokens else np.zeros(1, np.int64))
+
+    # 4. signature bits in minimal-hash order
+    sigs_tok = np_seeded_hash32(content.fps, SIG_SEED) \
+        & np.uint32((1 << sig_bits) - 1)
+    sigs_mh = np.zeros(max(n_tokens, 1), dtype=np.uint32)
+    sigs_mh[idx] = sigs_tok
+    signatures = pack_fixed_width(sigs_mh[:max(n_tokens, 1)], sig_bits)
+
+    # 5. BIC-encode lists in rank order
+    lists_by_rank = [content.lists[i] for i in order]
+    bic_bits, bic_offsets, bic_counts = bic.encode_lists(
+        lists_by_rank, content.n_postings)
+
+    # 6. optional device bitmap planes (vectorized scatter over all lists)
+    planes = None
+    words = (max(content.n_postings, 1) + 31) // 32
+    if n_lists and n_lists * words * 4 <= plane_budget_bytes:
+        planes = pack_bitmap_planes(lists_by_rank, content.n_postings)
+
+    stats = dict(content.stats)
+    stats.update(n_tokens=n_tokens, n_lists=n_lists,
+                 n_postings=content.n_postings,
+                 dedup_ratio=(1.0 - n_lists / n_tokens) if n_tokens else 0.0)
+    return ImmutableSketch(
+        mphf=mphf, csf=csf, signatures=signatures, sig_bits=sig_bits,
+        bic_bits=bic_bits, bic_offsets=bic_offsets, bic_counts=bic_counts,
+        n_postings=content.n_postings, n_tokens=n_tokens, planes=planes,
+        stats=stats)

@@ -1,0 +1,80 @@
+"""Wrappers of the bitset_reduce_batch kernel: the AND/OR fold of posting
+planes over the token axis plus the popcount of each result row."""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import build
+from .ref import bitset_reduce_batch_ref, bitset_reduce_ref
+
+
+@functools.cache
+def _kernel():
+    lib = build.library("bitset_ops")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return lib, build.declare(lib, "bitset_reduce_batch_launch",
+                              p, i, i, i, i, i, p, p, p)
+
+
+def _launch(planes: torch.Tensor, op: str
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    q, t, w = planes.shape
+    out = torch.empty((q, w), dtype=torch.int32, device=planes.device)
+    counts = torch.empty(q, dtype=torch.int32, device=planes.device)
+    vec = int(w % 4 == 0 and planes.data_ptr() % 16 == 0
+              and out.data_ptr() % 16 == 0)
+    lib, fn = _kernel()
+    with torch.cuda.device(planes.device):
+        err = fn(planes.data_ptr(), q, t, w, int(op == "and"), vec,
+                 out.data_ptr(), counts.data_ptr(), build.stream_of(planes))
+    build.check(lib, err, "bitset_reduce_batch")
+    return out, counts
+
+
+def _check(planes: torch.Tensor, op: str, ndim: int) -> None:
+    if op not in ("and", "or"):
+        raise ValueError(f"op={op!r}")
+    if (planes.dim() != ndim or planes.dtype != torch.int32
+            or not planes.is_contiguous() or planes.shape[-2] == 0):
+        raise ValueError(f"planes must be a contiguous {ndim}-D int32 tensor "
+                         f"with at least one token plane")
+    if planes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bitset_ops runs on cuda or cpu, not "
+                         f"{planes.device}")
+
+
+def bitset_reduce_batch(planes: torch.Tensor, *, op: str = "and"
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Q, T, W) int32-viewed u32 planes -> ((Q, W) combined, (Q,) int32
+    popcounts).  AND keeps the words every token has; OR any token's.
+    A CUDA tensor launches the kernel; a CPU tensor takes the plain
+    version."""
+    _check(planes, op, 3)
+    if planes.device.type == "cpu":
+        return bitset_reduce_batch_ref(planes, op=op)
+    q, _, w = planes.shape
+    if q == 0:      # nothing to launch for
+        return (torch.empty((0, w), dtype=torch.int32, device=planes.device),
+                torch.empty(0, dtype=torch.int32, device=planes.device))
+    out = _launch(planes, op)
+    bitset_reduce_batch.launch_count += 1
+    return out
+
+
+def bitset_reduce(planes: torch.Tensor, *, op: str = "and"
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(T, W) planes -> ((W,) combined, () int32 popcount): the Q = 1 call
+    of the same kernel."""
+    _check(planes, op, 2)
+    if planes.device.type == "cpu":
+        return bitset_reduce_ref(planes, op=op)
+    out, counts = _launch(planes[None], op)
+    bitset_reduce.launch_count += 1
+    return out[0], counts[0]
+
+
+bitset_reduce_batch.launch_count = 0
+bitset_reduce.launch_count = 0

@@ -1,0 +1,1 @@
+"""sketch_probe kernel: ops.py (wrapper) + ref.py (plain version)."""

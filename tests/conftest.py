@@ -20,6 +20,12 @@ except ImportError:
     sys.modules["hypothesis.strategies"] = _hypothesis_fallback.strategies
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs an NVIDIA GPU and nvcc; the test "
+        "skips itself elsewhere")
+
+
 @pytest.fixture(scope="session")
 def small_dataset():
     from repro.logstore.datasets import generate_dataset

@@ -1,0 +1,236 @@
+"""Each kernel's plain PyTorch version against the JAX package's Pallas
+kernel (interpret mode) and its jnp oracle, at the edges the query path
+meets: ragged W, Q not a power of two, empty / full / over-max_hits rows,
+absent keys, an MPHF with fallback keys.  All data is integer, so the
+tolerance is exact equality.
+
+The ``requires_cuda`` cases hold each CUDA kernel against its plain
+version on the card; they skip where there is no GPU.  The JAX package
+is imported by the ``jx`` fixture only, so the CUDA cases also run where
+JAX is not installed."""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import mphf as port_mphf
+from repro_torch.kernels.bitmap_extract.ops import bitmap_extract
+from repro_torch.kernels.bitmap_extract.ref import bitmap_extract_ref
+from repro_torch.kernels.bitset_ops.ops import bitset_reduce, bitset_reduce_batch
+from repro_torch.kernels.bitset_ops.ref import bitset_reduce_batch_ref
+from repro_torch.kernels.sketch_probe.ops import mphf_probe_arrs
+from repro_torch.kernels.sketch_probe.ref import sketch_probe_ref
+
+
+def _i32(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32))
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().view(np.uint32)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX reference: jnp, the MPHF module, and the Pallas kernels'
+    wrappers and jnp oracles."""
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.core import mphf
+    from repro.kernels.bitmap_extract.ops import bitmap_extract
+    from repro.kernels.bitmap_extract.ref import bitmap_extract_ref
+    from repro.kernels.bitset_ops.ops import (bitset_reduce,
+                                              bitset_reduce_batch)
+    from repro.kernels.bitset_ops.ref import bitset_reduce_batch_ref
+    from repro.kernels.sketch_probe.ops import mphf_probe_arrs
+    return SimpleNamespace(
+        jnp=jnp, mphf=mphf, probe=mphf_probe_arrs, reduce=bitset_reduce,
+        reduce_batch=bitset_reduce_batch,
+        reduce_batch_ref=bitset_reduce_batch_ref, extract=bitmap_extract,
+        extract_ref=bitmap_extract_ref)
+
+
+# ----------------------------------------------------------------- inputs
+def _mphf_case(seed, n_keys, max_levels):
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(0, 2**32, n_keys, dtype=np.uint64)
+                     .astype(np.uint32))
+    absent = rng.integers(0, 2**32, 500, dtype=np.uint64).astype(np.uint32)
+    fps = np.concatenate([keys, absent, [0, 0xFFFFFFFF]]).astype(np.uint32)
+    return keys, fps[rng.permutation(fps.size)][:1021]   # Q not a pow2
+
+
+def _planes(seed, q, t, w):
+    """Random planes with an all-zero row, an all-ones row and a sparse
+    row among them."""
+    rng = np.random.default_rng(seed)
+    p = rng.integers(0, 2**32, (q, t, w), dtype=np.uint64).astype(np.uint32)
+    p |= rng.integers(0, 2**32, (q, t, w), dtype=np.uint64).astype(np.uint32)
+    p[0] = 0
+    if q > 1:
+        p[1] = 0xFFFFFFFF
+    if q > 2:
+        p[2] &= np.uint32(0x00010001)
+    return p
+
+
+def _bitmaps(seed, q, w):
+    rng = np.random.default_rng(seed)
+    density = rng.choice([0.0, 0.01, 0.1, 0.5], size=(q, 1))
+    bits = rng.random((q, w * 32)) < density
+    bits[-1] = True                                  # a full row
+    return np.packbits(bits.reshape(q, w, 4, 8)[..., ::-1], axis=-1) \
+        .reshape(q, w, 4)[..., ::-1].copy().view(np.uint32).reshape(q, w)
+
+
+# ---------------------------------------------------------- sketch_probe
+MPHF_CASES = [(0, 3000, 12), (1, 5000, 1), (2, 40, 12)]
+
+
+@pytest.mark.parametrize("seed,n_keys,max_levels", MPHF_CASES)
+def test_mphf_build_matches_reference(jx, seed, n_keys, max_levels):
+    keys, _ = _mphf_case(seed, n_keys, max_levels)
+    a = jx.mphf.build_mphf(keys, max_levels=max_levels)
+    b = port_mphf.build_mphf(keys, max_levels=max_levels)
+    for f in ("words", "level_word_offset", "level_bits", "block_rank",
+              "fallback_fps", "fallback_idx"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
+    if max_levels == 1:
+        assert b.fallback_fps.size > 0, "case must have fallback keys"
+
+
+@pytest.mark.parametrize("seed,n_keys,max_levels", MPHF_CASES)
+def test_sketch_probe_plain_matches_pallas_and_jnp(jx, seed, n_keys,
+                                                   max_levels):
+    keys, fps = _mphf_case(seed, n_keys, max_levels)
+    jnp = jx.jnp
+    m_ref = jx.mphf.build_mphf(keys, max_levels=max_levels)
+    m = port_mphf.build_mphf(keys, max_levels=max_levels)
+    idx, absent = mphf_probe_arrs(_i32(fps), m.device_arrays("cpu"))
+    j_idx, j_abs = jx.probe(
+        jnp.asarray(fps), m_ref.device_arrays(),
+        level_bits=tuple(int(x) for x in m_ref.level_bits),
+        level_word_offset=tuple(int(x) for x in m_ref.level_word_offset))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+    np.testing.assert_array_equal(absent.numpy(), np.asarray(j_abs))
+    o_idx, o_abs = m_ref.lookup_jnp(jnp.asarray(fps))
+    np.testing.assert_array_equal(absent.numpy(), np.asarray(o_abs))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(o_idx))
+    assert idx.dtype == torch.int32 and absent.dtype == torch.bool
+    # every construction key resolves, absent ones mostly do not
+    inset = np.isin(fps, keys)
+    assert not absent.numpy()[inset].any()
+    assert absent.numpy()[~inset].any()
+
+
+# ------------------------------------------------------------ bitset_ops
+BITSET_SHAPES = [(8, 1, 62), (5, 8, 62), (3, 3, 1), (1, 8, 33), (12, 2, 64)]
+
+
+@pytest.mark.parametrize("q,t,w", BITSET_SHAPES)
+@pytest.mark.parametrize("op", ["and", "or"])
+def test_bitset_reduce_batch_plain_matches_pallas_and_jnp(jx, q, t, w, op):
+    jnp = jx.jnp
+    p = _planes(q * 100 + t + w, q, t, w)
+    combined, counts = bitset_reduce_batch(_i32(p), op=op)
+    j_c, j_n = jx.reduce_batch(jnp.asarray(p), op=op)
+    np.testing.assert_array_equal(_u32(combined), np.asarray(j_c))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(j_n))
+    o_c, o_n = jx.reduce_batch_ref(jnp.asarray(p), op=op)
+    np.testing.assert_array_equal(_u32(combined), np.asarray(o_c))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(o_n))
+    assert counts.dtype == torch.int32
+
+
+@pytest.mark.parametrize("t,w", [(1, 62), (8, 62), (4, 7)])
+@pytest.mark.parametrize("op", ["and", "or"])
+def test_bitset_reduce_single_matches_pallas(jx, t, w, op):
+    jnp = jx.jnp
+    p = _planes(t + w, 1, t, w)[0]
+    combined, count = bitset_reduce(_i32(p), op=op)
+    j_c, j_n = jx.reduce(jnp.asarray(p), op=op)
+    np.testing.assert_array_equal(_u32(combined), np.asarray(j_c))
+    assert int(count) == int(j_n) and count.dim() == 0
+
+
+# --------------------------------------------------------- bitmap_extract
+EXTRACT_CASES = [(16, 62, 2048), (7, 62, 64), (5, 3, 8), (9, 1, 32),
+                 (4, 40, 0)]
+
+
+@pytest.mark.parametrize("q,w,max_hits", EXTRACT_CASES)
+def test_bitmap_extract_plain_matches_pallas_and_jnp(jx, q, w, max_hits):
+    jnp = jx.jnp
+    bm = _bitmaps(q + w + max_hits, q, w)
+    ids, counts = bitmap_extract(_i32(bm), max_hits=max_hits)
+    assert ids.shape == (q, max_hits) and ids.dtype == torch.int32
+    o_ids, o_n = jx.extract_ref(jnp.asarray(bm), max_hits=max_hits)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(o_ids))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(o_n))
+    if max_hits:
+        j_ids, j_n = jx.extract(jnp.asarray(bm), max_hits=max_hits,
+                                 use_kernel=True)
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(j_ids))
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(j_n))
+    if max_hits < 32 * w:
+        assert (counts.numpy() > max_hits).any(), "case must overflow a row"
+
+
+def test_wrappers_reject_bad_inputs():
+    with pytest.raises(ValueError):
+        bitset_reduce_batch(torch.zeros((2, 3), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        bitset_reduce_batch(torch.zeros((2, 1, 3), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        bitset_reduce_batch(torch.zeros((2, 1, 3), dtype=torch.int32),
+                            op="xor")
+    with pytest.raises(ValueError):
+        bitmap_extract(torch.zeros((2, 3), dtype=torch.int32).t(),
+                       max_hits=8)
+    m = port_mphf.build_mphf(np.arange(100, dtype=np.uint32))
+    with pytest.raises(ValueError):
+        mphf_probe_arrs(torch.zeros(4, dtype=torch.int64),
+                        m.device_arrays("cpu"))
+
+
+# ------------------------------------------------------ CUDA, on the card
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("seed,n_keys,max_levels", MPHF_CASES)
+def test_cuda_sketch_probe_matches_plain(cuda, seed, n_keys, max_levels):
+    keys, fps = _mphf_case(seed, n_keys, max_levels)
+    arrs = port_mphf.build_mphf(keys, max_levels=max_levels) \
+        .device_arrays(cuda)
+    before = mphf_probe_arrs.launch_count
+    idx, absent = mphf_probe_arrs(_i32(fps).to(cuda), arrs)
+    torch.cuda.synchronize()
+    assert mphf_probe_arrs.launch_count == before + 1
+    r_idx, r_abs = sketch_probe_ref(_i32(fps).to(cuda), arrs)
+    assert torch.equal(idx, r_idx) and torch.equal(absent, r_abs)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("q,t,w", BITSET_SHAPES + [(4096, 8, 62)])
+@pytest.mark.parametrize("op", ["and", "or"])
+def test_cuda_bitset_reduce_batch_matches_plain(cuda, q, t, w, op):
+    p = _i32(_planes(q + t + w, q, t, w)).to(cuda)
+    combined, counts = bitset_reduce_batch(p, op=op)
+    r_c, r_n = bitset_reduce_batch_ref(p, op=op)
+    assert torch.equal(combined, r_c) and torch.equal(counts, r_n)
+    single, count = bitset_reduce(p[0].contiguous(), op=op)
+    assert torch.equal(single, r_c[0]) and int(count) == int(r_n[0])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("q,w,max_hits", EXTRACT_CASES + [(4096, 62, 2048)])
+def test_cuda_bitmap_extract_matches_plain(cuda, q, w, max_hits):
+    bm = _i32(_bitmaps(q + w, q, w)).to(cuda)
+    ids, counts = bitmap_extract(bm, max_hits=max_hits)
+    r_ids, r_n = bitmap_extract_ref(bm, max_hits=max_hits)
+    assert torch.equal(ids, r_ids) and torch.equal(counts, r_n)

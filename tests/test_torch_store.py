@@ -1,0 +1,158 @@
+"""The port's segmented DynaWarp store end to end against the JAX
+package: the same lines give the same segments, the same batched and lone
+term answers, the same contains answers and the same multi-token AND/OR
+waves as ``repro``'s ``DynaWarpStore(mode="segmented")``, and the same
+matches as the scan oracle.  Exact equality throughout (integer data)."""
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.logstore.store import DynaWarpStore as RefStore
+from repro.logstore.store import ScanStore as RefScan
+from repro_torch.core.tokenizer import contains_query_tokens
+from repro_torch.logstore.datasets import (id_queries, present_id_queries)
+from repro_torch.logstore.store import DynaWarpStore, ScanStore
+
+# small batches and a small memory limit: many spills, so the store holds
+# several segments whose plane widths differ
+STORE_KW = dict(batch_lines=16, memory_limit_bytes=192 << 10, compact_fanout=8)
+
+
+@pytest.fixture(scope="module")
+def stores(small_dataset):
+    port = DynaWarpStore(device="cpu", **STORE_KW)
+    ref = RefStore(mode="segmented", **STORE_KW)
+    scan = ScanStore(batch_lines=16)
+    for s in (port, ref, scan):
+        s.ingest(small_dataset.lines)
+        s.finish()
+    return port, ref, scan
+
+
+def _terms(ds):
+    return (present_id_queries(ds, 3, 12) + id_queries(4, 6)
+            + ["info", "connection", "gc", "blk", "zzqqxxyyzzqqwwee"])
+
+
+def test_port_store_has_segments_of_different_widths(stores):
+    port, ref, _ = stores
+    widths = {s.planes.shape[1] for s in port.segments}
+    assert len(port.segments) >= 3 and len(widths) >= 2, widths
+    assert len(port.segments) == len(ref.segments)
+    for a, b in zip(port.segments, ref.segments):
+        np.testing.assert_array_equal(a.planes, b.planes)
+        np.testing.assert_array_equal(a.mphf.words, b.mphf.words)
+        np.testing.assert_array_equal(a.signatures, b.signatures)
+
+
+def test_term_batch_and_lone_terms_match_reference_and_scan(stores,
+                                                           small_dataset):
+    port, ref, scan = stores
+    terms = _terms(small_dataset)
+    got = port.query_term_batch(terms)
+    want = ref.query_term_batch(terms)
+    cand = port.candidates_term_batch(terms)
+    cand_ref = ref.candidates_term_batch(terms)
+    for t, g, w, c, cr in zip(terms, got, want, cand, cand_ref):
+        np.testing.assert_array_equal(c, cr)
+        truth = scan.query_term(t).matches
+        assert g.matches == w.matches == truth, t
+        assert port.query_term(t).matches == truth, t
+
+
+def test_contains_matches_reference_and_scan(stores, small_dataset):
+    port, ref, scan = stores
+    subs = [t[2:14] for t in present_id_queries(small_dataset, 5, 6)] \
+        + ["ssh", "nginx: ", "blk_", "=30"]
+    for sub in subs:
+        truth = scan.query_contains(sub).matches
+        assert port.query_contains(sub).matches \
+            == ref.query_contains(sub).matches == truth, sub
+
+
+@pytest.mark.parametrize("op", ["and", "or"])
+def test_multi_token_waves_match_reference_engine(stores, small_dataset, op):
+    port, ref, _ = stores
+    needles = [t[1:12] for t in present_id_queries(small_dataset, 7, 20)] \
+        + ["request_id=", "packetresponder", "zzqqxxyyzz", "a"]
+    toks = [contains_query_tokens(n) for n in needles] + [[]]
+    assert max(len(t) for t in toks) >= 8
+    got = port.engine.query_batch(toks, op=op)
+    want = ref.engine.query_batch(toks, op=op)
+    for t, g, w in zip(toks, got, want):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, port.engine.host_query(t, op=op))
+
+
+def test_upload_count_is_one_per_segment(small_dataset):
+    st = DynaWarpStore(device="cpu", **STORE_KW)
+    st.ingest(small_dataset.lines[:1200])
+    st.finish()
+    terms = present_id_queries(small_dataset, 9, 10)
+    st.query_term_batch(terms)
+    assert st.engine.upload_count == len(st.segments)
+    st.query_term_batch(terms[::-1])
+    assert st.engine.upload_count == len(st.segments)
+    clone = st.engine.clone()
+    clone.query_batch([[b"info"]] * 3)
+    assert clone.upload_count == 0
+
+
+def test_compaction_matches_reference(small_dataset):
+    kw = dict(STORE_KW, auto_compact=False)
+    port = DynaWarpStore(device="cpu", **kw)
+    ref = RefStore(mode="segmented", **kw)
+    for s in (port, ref):
+        s.ingest(small_dataset.lines)
+        s.finish()
+    n_before = len(port.segments)
+    assert port.compact(fanout=2) == ref.compact(fanout=2) > 0
+    assert len(port.segments) == len(ref.segments) < n_before
+    for a, b in zip(port.segments, ref.segments):
+        np.testing.assert_array_equal(a.planes, b.planes)
+    terms = _terms(small_dataset)
+    for g, w in zip(port.candidates_term_batch(terms),
+                    ref.candidates_term_batch(terms)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_queries_during_ingest_are_exact(small_dataset):
+    port = DynaWarpStore(device="cpu", **STORE_KW)
+    scan = RefScan(batch_lines=16)
+    lines = small_dataset.lines[:800]       # 50 whole batches
+    port.ingest(lines)
+    scan.ingest(lines)
+    scan.finish()
+    for t in present_id_queries(small_dataset, 11, 5):
+        assert port.query_term(t).matches == scan.query_term(t).matches
+
+
+def test_port_imports_neither_jax_nor_reference():
+    code = ("import sys, repro_torch, repro_torch.logstore.store, "
+            "repro_torch.kernels.build; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_default_device_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DynaWarpStore()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DynaWarpStore(device="cuda")
+
+
+def test_unported_paths_raise():
+    with pytest.raises(NotImplementedError):
+        DynaWarpStore(device="cpu", mode="batch")
+    with pytest.raises(NotImplementedError):
+        DynaWarpStore(device="cpu", path="somewhere")
+    with pytest.raises(NotImplementedError):
+        DynaWarpStore(device="cpu").snapshot()
