@@ -28,7 +28,23 @@ Phases (any failure raises, so the exit code is not 0):
      sources, three planted Log4Shell lines) over every store of
      ``ALL_STORES`` on the GPU, each equal to its CPU run, batch-mode and
      segmented DynaWarp equal;
-  7. print the ``kernels`` JSON line (launch counts of each path, the
+  7. hold the model-serving kernels (``retrieval_score``, ``embedding_bag``,
+     ``flash_decode``) against their plain versions on the card, at their
+     paths' shapes and at the edges, within the tolerance stated at
+     ``check_model_kernels``, and time each beside one PyTorch library call
+     that computes the same function;
+  8. the LM serving path: llama3-8b at full width (32 layers, bf16, 8.03B
+     parameters from a seeded init), prefill of 8 prompts of 1024 tokens,
+     then 31 greedy decode steps through ``flash_decode``; one decode step
+     through the kernel against the same step through the plain
+     ``decode_attention`` on the card;
+  9. the recsys serving paths at full width: two-tower ``retrieval_cand``
+     (64 requests, each the 1,048,576-row corpus GEMV through
+     ``retrieval_score`` and a top-100) and xDeepFM ``serve_p99`` (32
+     requests of 512 rows, the wide term through ``embedding_bag``), each
+     held to its plain version on the card; xDeepFM's candidate scoring at
+     smoke size, held to its CPU run;
+ 10. print the ``kernels`` JSON line (launch counts of each path, the
      error against the plain versions, times and bounds), then the result.
 
 Each path's launch counts are set to 0 just before it and read just
@@ -62,6 +78,33 @@ DEVICE_STORES = ("dynawarp", "csc")  # the stores that take a device
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 SPIN_CYCLES = 20_000_000             # queued spin that hides launch cost
 REPS = 25
+# the model-serving paths (phases 8 and 9)
+LM_BATCH, LM_PROMPT, LM_DECODE = 8, 1024, 32
+N_RETRIEVAL, TOP_K, N_SCORE = 64, 100, 32
+# decode logits, kernel path against plain, as a share of the logits' std:
+# 16 bf16 steps at unit scale, for a difference born in attention's bf16
+# rounding and carried through 32 bf16 layers.  On random weights attention
+# is a small share of the residual: the kernel's last split dropped moves
+# the logits past it and is required to, its newest position dropped does
+# not (phase 7 holds the kernel at the path's own shape for that)
+LOGIT_TOL = 2 ** -3
+# phase 7 shapes, the main one first: (C, D) two-tower corpus, C off any
+# block, C = 1, a D that takes the scalar loads
+RETRIEVAL_SHAPES = ((1_048_576, 256), (1_000_003, 256), (1, 256), (4097, 30))
+# (V, D, B, BAG, fields): xDeepFM's wide term (D = 1, one id in each of 39
+# fields of 1M rows), then D = 8, 64, 128
+EBAG_SHAPES = ((39_000_000, 1, 512, 39, 39), (100_000, 8, 512, 39, 1),
+               (100_000, 64, 512, 39, 1), (100_000, 128, 77, 5, 1))
+# (B, S, Hq, Hkv, D, cache_len, dtype): llama3-8b at 8 of the decode_32k
+# cell's 128 rows, with a full and a partial cache; the LM path's own call
+# (phase 8's last step); a ragged S, cache_len 1, n_rep 1, f32
+DECODE_SHAPES = ((8, 32768, 32, 8, 128, 32768, "bfloat16"),
+                 (8, 32768, 32, 8, 128, 30_001, "bfloat16"),
+                 (8, 1056, 32, 8, 128, 1055, "bfloat16"),
+                 (4, 1037, 32, 8, 128, 1037, "bfloat16"),
+                 (4, 1037, 32, 8, 128, 1, "bfloat16"),
+                 (4, 2048, 8, 8, 128, 2000, "bfloat16"),
+                 (4, 4096, 32, 8, 128, 4096, "float32"))
 
 
 def require(cond: bool, what: str) -> None:
@@ -314,6 +357,485 @@ def check_kernels(torch, np, dev) -> dict:
         lambda t, ln, _: (int(ln.clamp(0, t.shape[1]).sum()) + 8 * t.shape[0]),
         0)
     return results
+
+
+# ---------------------------------------------------------------- phase 7
+def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
+               main, faults=None) -> dict:
+    """``kernel`` against ``plain`` on every case (a tuple whose last item
+    names it) within ``tol(*case, want)`` = (rtol, atol); then kernel, plain
+    and ``library`` timed at ``cases[main]``, with the bytes bound of that
+    case.  Each returns one tensor.  The reading of an output is its
+    largest |err| / (atol + rtol |want|): at most 1 for the kernel, and
+    above 1 for every planted fault that ``faults(*case)`` yields as
+    (label, output) pairs, so that the tolerance is shown to separate."""
+    err, worst, caught, shapes, readings = 0.0, 0.0, float("inf"), [], []
+    for case in cases:
+        got, want = kernel(*case), plain(*case)
+        torch.cuda.synchronize()
+        rtol, atol = tol(*case, want)
+        require(got.shape == want.shape and got.dtype == want.dtype,
+                f"{name}: shape or dtype differs on {case[-1]}")
+        limit = (atol + rtol * want.float().abs()).clamp_min(1e-30)
+
+        def reading(out):
+            e = (out.float() - want.float()).abs()
+            return e, float((e / limit).max()) if e.numel() else 0.0
+
+        e, r = reading(got)
+        require(r <= 1, f"{name} disagrees with its plain version on "
+                f"{case[-1]}: max |err| {float(e.max())}, reading {r}")
+        err = max(err, float(e.max()) if e.numel() else 0.0)
+        worst = max(worst, r)
+        planted = []
+        for label, out in (faults(*case) if faults else ()):
+            fr = reading(out)[1]
+            require(fr > 1, f"{name}'s tolerance passes a planted fault "
+                    f"({label}) on {case[-1]}: reading {fr}")
+            caught = min(caught, fr)
+            planted.append(f"{label} {fr:.3g}")
+        readings.append(f"{r:.3g}" + (f" ({', '.join(planted)})"
+                                      if planted else ""))
+        shapes.append(case[-1])
+    case = cases[main]
+    ms = device_ms(torch, lambda: kernel(*case))
+    plain_ms = device_ms(torch, lambda: plain(*case))
+    library_ms = device_ms(torch, lambda: library(*case))
+    bound = bytes_of(*case) / HBM_BYTES_PER_S * 1e3
+    faulted = (f", planted faults read >= {caught:.3g} (by case: "
+               f"{'; '.join(readings)})" if caught < float("inf") else "")
+    print(f"kernel {name}: within tolerance on {len(cases)} cases {shapes}, "
+          f"max |err| {err:.3g}, reading <= {worst:.3g}{faulted}; at "
+          f"{case[-1]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms, bound {bound:.4f} ms (bytes)", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                library_ms=library_ms, shape=case[-1])
+
+
+def check_model_kernels(torch, dev) -> dict:
+    """The model-serving kernels against their plain versions on the card.
+    Tolerances: f32 results at rtol 2e-5 (atol 1e-4 for the 256-long
+    corpus dots, 2e-5 else): the card sums in another order.  bf16
+    attention at rtol 2^-7 (one bf16 step of the output) plus atol 2^-8 *
+    max|want| (the plain version rounds its probabilities to bf16, the
+    kernel keeps them in f32; scaled by the output, which at 32k positions
+    is ~1/100 of v).  Every attention case must also reject two planted
+    faults, made by calling the kernel on a shorter cache: its last split
+    dropped, and its newest position dropped.  Library yardsticks, timed
+    only: ``torch.mv``,
+    ``F.embedding_bag(mode="sum")`` and ``F.scaled_dot_product_attention``
+    with GQA on head-major caches."""
+    import torch.nn.functional as F
+    from repro_torch.device import generator
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_sum
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.flash_decode.ops import flash_decode, split_plan
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.retrieval_score.ops import retrieval_scores
+    from repro_torch.kernels.retrieval_score.ref import retrieval_score_ref
+
+    gen = generator(SEED, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    results = {}
+    cases = [(randn(c, d), randn(d), f"C={c} D={d}")
+             for c, d in RETRIEVAL_SHAPES]
+    results["retrieval_score"] = hold_close(
+        torch, "retrieval_score", cases,
+        lambda x, q, _: retrieval_scores(x, q),
+        lambda x, q, _: retrieval_score_ref(x, q),
+        lambda x, q, _: torch.mv(x, q),
+        lambda x, q, _: nbytes(x, q) + 4 * x.shape[0],
+        lambda x, q, _, want: (2e-5, 1e-4), 0)
+    del cases
+
+    def bags(v, d, b, bag, fields):
+        ids = torch.randint(0, v // fields, (b, bag), generator=gen,
+                            device=dev, dtype=torch.int32)
+        if fields > 1:
+            ids += torch.arange(bag, device=dev, dtype=torch.int32) * (v // fields)
+        return randn(v, d), ids.contiguous(), f"V={v} D={d} B={b} BAG={bag}"
+
+    cases = [bags(*shape) for shape in EBAG_SHAPES]
+    results["embedding_bag"] = hold_close(
+        torch, "embedding_bag", cases,
+        lambda t, i, _: embedding_bag_sum(t, i),
+        lambda t, i, _: embedding_bag_ref(t, i),
+        lambda t, i, _: F.embedding_bag(i, t, mode="sum"),
+        # the indices, the rows they name, the output
+        lambda t, i, _: nbytes(i) + i.numel() * t.shape[1] * 4
+        + i.shape[0] * t.shape[1] * 4,
+        lambda t, i, _, want: (2e-5, 2e-5), 0)
+    del cases
+
+    def attn(b, s, hq, hkv, d, clen, dtype):
+        dt = getattr(torch, dtype)
+        return (randn(b, hq, d, dtype=dt), randn(b, s, hkv, d, dtype=dt),
+                randn(b, s, hkv, d, dtype=dt), clen,
+                f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} len={clen} {dtype}")
+
+    cases = [attn(*shape) for shape in DECODE_SHAPES]
+    head_major = {}
+
+    def sdpa(q, k, v, clen, label):
+        if label not in head_major:    # laid out once, outside the timing
+            head_major[label] = tuple(x[:, :clen].transpose(1, 2).contiguous()
+                                      for x in (k, v))
+        kh, vh = head_major[label]
+        return F.scaled_dot_product_attention(q[:, :, None], kh, vh,
+                                              enable_gqa=True)[:, :, 0]
+
+    def tol(q, k, v, clen, _, want):
+        if q.dtype == torch.float32:
+            return 2e-5, 2e-5
+        return 2 ** -7, 2 ** -8 * float(want.float().abs().max())
+
+    def faults(q, k, v, clen, _):
+        chunk, n_splits = split_plan(q.shape[0], k.shape[2], clen, sms)
+        if n_splits > 1:
+            yield "last split dropped", flash_decode(q, k, v,
+                                                     (n_splits - 1) * chunk)
+        if clen > 1:
+            yield "newest position dropped", flash_decode(q, k, v, clen - 1)
+
+    results["flash_decode"] = hold_close(
+        torch, "flash_decode", cases,
+        lambda q, k, v, n, _: flash_decode(q, k, v, n),
+        lambda q, k, v, n, _: flash_decode_ref(q, k, v, n),
+        sdpa,
+        lambda q, k, v, n, _: 2 * q.nbytes + 2 * q.shape[0] * n * k.shape[2]
+        * k.shape[3] * k.element_size(),
+        tol, 0, faults)
+    del cases, head_major
+    torch.cuda.empty_cache()
+    return results
+
+
+def free(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def percentiles(np, ms) -> tuple[float, float]:
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+# ---------------------------------------------------------------- phase 8
+def lm_path(torch, np, dev, counters, cfg=None) -> dict:
+    """llama3-8b serving at full width: prefill, greedy decode, and one
+    decode step through ``flash_decode`` against the same step through the
+    plain ``decode_attention``, with the readings of two planted faults of
+    the kernel beside it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.device import generator
+    from repro_torch.kernels.flash_decode.ops import split_plan
+    from repro_torch.models import attention
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.models.transformer import (decode_step, init_cache,
+                                                init_params, prefill)
+
+    cfg = cfg or get_arch("llama3-8b").config
+    t0 = time.perf_counter()
+    params = init_params(cfg, generator(SEED, dev))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    init_s = time.perf_counter() - t0
+    b, s = LM_BATCH, LM_PROMPT
+    prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        1, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+
+    reset(counters)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        cache_pref, logits = prefill(cfg, params, prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        cache = init_cache(cfg, b, s + LM_DECODE, device=dev)
+        for n in ("k", "v"):
+            cache[n][:, :, :s] = cache_pref[n]
+        del cache_pref
+        tokens = [logits.argmax(-1).to(torch.int32)]
+        step_ms = []
+        for i in range(LM_DECODE - 1):
+            t0 = time.perf_counter()
+            cache, tok, _ = decode_step(cfg, params, cache, tokens[-1], s + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            tokens.append(tok)
+    launches = read(counters)
+    require(launches["flash_decode"] == cfg.n_layers * (LM_DECODE - 1),
+            f"flash_decode launched {launches['flash_decode']} times, not "
+            f"once per layer and step")
+    gen_tokens = torch.stack(tokens, 1).cpu().numpy()
+    require(gen_tokens.min() >= 0 and gen_tokens.max() < cfg.vocab,
+            "a generated token lies outside the vocabulary")
+
+    # the last step again (it rewrites the same K/V at the same position):
+    # through the kernel, through the plain version on the card, and through
+    # two planted faults of the kernel, each read against the plain logits.
+    # The attention module's name is swapped, and the launch count must
+    # show that each step took the attention it was given.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    last = s + LM_DECODE - 2
+    kernel_fn = attention.flash_decode
+
+    steps = {"kernel": (kernel_fn, cfg.n_layers),
+             "plain": (lambda q, k, v, n: decode_attention(
+                 q[:, None], k, v, n)[:, 0], 0),
+             "newest position dropped": (
+                 lambda q, k, v, n: kernel_fn(q, k, v, n - 1), cfg.n_layers)}
+    chunk, n_splits = split_plan(b, cfg.n_kv_heads, last + 1, sms)
+    if n_splits > 1:
+        steps["last split dropped"] = (lambda q, k, v, n: kernel_fn(
+            q, k, v, (n_splits - 1) * chunk), cfg.n_layers)
+    toks, logits = {}, {}
+    with torch.inference_mode():
+        for label, (fn, want) in steps.items():
+            before = read(counters)["flash_decode"]
+            attention.flash_decode = fn
+            try:
+                _, toks[label], logits[label] = decode_step(
+                    cfg, params, cache, tokens[-2], last)
+            finally:
+                attention.flash_decode = kernel_fn
+            moved = read(counters)["flash_decode"] - before
+            require(moved == want, f"the {label} decode step launched "
+                    f"flash_decode {moved} times, not {want}")
+    tok_k, tok_p = toks["kernel"], toks["plain"]
+    logits_k, logits_p = logits["kernel"], logits["plain"]
+    require(torch.equal(tok_k, tokens[-1]),
+            "a repeated decode step chose other tokens")
+    require(bool(torch.isfinite(logits_k).all()), "non-finite logits")
+    diff = float((logits_k - logits_p).abs().max())
+    scale = float(logits_p.std())
+    require(diff <= LOGIT_TOL * scale,
+            f"decode logits through flash_decode differ from the plain "
+            f"version by {diff} (logit std {scale})")
+    fault_diff = {label: float((logits[label] - logits_p).abs().max()) / scale
+                  for label in steps if label not in ("kernel", "plain")}
+    require(fault_diff.get("last split dropped", 1.0) > LOGIT_TOL,
+            f"the decode-logit tolerance passes a kernel with its last split "
+            f"dropped ({fault_diff})")
+    top2 = logits_p.topk(2, -1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    differ = (tok_k != tok_p).cpu().numpy()
+    require(not (differ & (margin > 2 * diff)).any(),
+            "greedy tokens differ where the plain version's margin exceeds "
+            "the logit difference")
+    del logits
+    # device busy share of one decode step and of one prefill
+    with torch.inference_mode():
+        step_busy = device_busy(torch, lambda: decode_step(
+            cfg, params, cache, tokens[-2], last))
+        prefill_busy = device_busy(torch, lambda: prefill(cfg, params,
+                                                          prompts))
+    p50, p99 = percentiles(np, step_ms)
+    out = dict(params=n_params, init_s=init_s, batch=b, prompt=s,
+               decode_steps=LM_DECODE - 1, prefill_s=prefill_s,
+               prefill_tok_s=b * s / prefill_s, step_ms_p50=p50,
+               step_ms_p99=p99, tok_s_p50=b / p50 * 1e3,
+               tok_s_p99=b / p99 * 1e3, logit_max_diff=diff, logit_std=scale,
+               logit_fault_diff_per_std=fault_diff,
+               tokens_differ=int(differ.sum()), launches=launches,
+               step_profiled_ms=step_busy[0], step_busy_ms=step_busy[1],
+               prefill_profiled_ms=prefill_busy[0],
+               prefill_busy_ms=prefill_busy[1],
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print(f"lm {cfg.name}: {n_params / 1e9:.3f}B params (init {init_s:.1f} s)"
+          f"; prefill {b} x {s} in {prefill_s:.3f} s; decode step p50 "
+          f"{p50:.2f} ms p99 {p99:.2f} ms = {out['tok_s_p50']:.0f} / "
+          f"{out['tok_s_p99']:.0f} tok/s; kernel vs plain step: max |dlogit| "
+          f"{diff:.4g} (std {scale:.4g}, limit {LOGIT_TOL} std), "
+          f"{int(differ.sum())} of {b} greedy tokens differ; planted faults "
+          f"move the logits by {fault_diff} std; launches {launches}; peak "
+          f"{out['peak_gb']:.1f} GB; device busy: decode step "
+          f"{busy_text(*step_busy)}, prefill {busy_text(*prefill_busy)}",
+          flush=True)
+    del params, cache
+    free(torch)
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------- phase 9
+def recsys_path(torch, np, dev, counters, two_tower_cfg=None,
+                xdeepfm_cfg=None) -> dict:
+    """Two-tower retrieval_cand and xDeepFM serve_p99 at full width, each
+    request timed to its synchronised end; each held to its plain version
+    on the card.  xDeepFM's init leaves the wide table, cin_out and the bias
+    at zero (as the JAX package does); they get seeded values here, so that
+    the wide term the kernel computes moves the logits."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import generator
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.retrieval_score.ops import retrieval_topk
+    from repro_torch.launch.steps import family_init, serve_fn
+    from repro_torch.models import recsys
+    from repro_torch.models.layers import normal
+
+    rng = np.random.default_rng(SEED)
+    out = {}
+
+    def timed(fn, batches):
+        ms = []
+        for batch in batches:
+            t0 = time.perf_counter()
+            res = fn(batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms, res
+
+    # ------------------------------------------------------- two-tower
+    spec = get_arch("two-tower-retrieval")
+    spec = replace(spec, config=two_tower_cfg or spec.config)
+    cfg = spec.config
+    t0 = time.perf_counter()
+    params = family_init(spec)(generator(SEED, dev))
+    init_s = time.perf_counter() - t0
+    fn = serve_fn(spec, spec.shape("retrieval_cand"))
+    users = [torch.from_numpy(rng.integers(0, cfg.field_vocab, (
+        1, cfg.n_user_fields)).astype(np.int32)).to(dev)
+        for _ in range(N_RETRIEVAL)]
+
+    def request(user):
+        return torch.topk(fn(params, {"user_idx": user}), TOP_K)
+
+    with torch.inference_mode():
+        request(users[0])                                   # warm-up
+        torch.cuda.synchronize()
+        reset(counters)
+        ms, _ = timed(request, users)
+        launches = read(counters)
+        # every request's top-100 against the plain GEMV's
+        n_tied = 0
+        for user in users:
+            vals, ids = request(user)
+            u = recsys._user(cfg, params, user)[0].contiguous()
+            plain = params["corpus"] @ u
+            p_vals, p_ids = torch.topk(plain, TOP_K)
+            require(torch.equal(retrieval_topk(params["corpus"], u, TOP_K)[1],
+                                ids), "retrieval_topk differs from the path")
+            require(torch.allclose(vals, p_vals, rtol=2e-5, atol=1e-6),
+                    "two-tower top-100 scores differ from the plain version")
+            if not torch.equal(ids, p_ids):
+                # ids may swap only among scores tied within tolerance
+                odd = set(ids.tolist()) ^ set(p_ids.tolist())
+                edge = float(p_vals[-1])
+                require(all(abs(float(plain[i]) - edge) <= 1e-6 + 2e-5 * abs(edge)
+                            for i in odd) or not odd,
+                        "two-tower top-100 ids differ from the plain version")
+                n_tied += 1
+        busy = device_busy(torch, lambda: request(users[0]))
+    p50, p99 = percentiles(np, ms)
+    out["two_tower"] = dict(corpus=cfg.n_corpus, dim=cfg.tower_mlp[-1],
+                            init_s=init_s, requests=N_RETRIEVAL, top_k=TOP_K,
+                            ms_p50=p50, ms_p99=p99, reordered_ties=n_tied,
+                            profiled_ms=busy[0], busy_ms=busy[1],
+                            launches=launches)
+    print(f"two-tower retrieval_cand: corpus {cfg.n_corpus} x "
+          f"{cfg.tower_mlp[-1]}, {N_RETRIEVAL} requests, p50 {p50:.3f} ms "
+          f"p99 {p99:.3f} ms (top-{TOP_K} equal to the plain version; "
+          f"{n_tied} reordered within ties); device busy per request "
+          f"{busy_text(*busy)}; launches {launches}", flush=True)
+    del params
+    free(torch)
+
+    # --------------------------------------------------------- xDeepFM
+    spec = get_arch("xdeepfm")
+    spec = replace(spec, config=xdeepfm_cfg or spec.config)
+    cfg = spec.config
+    gen = generator(SEED + 1, dev)
+    t0 = time.perf_counter()
+    params = family_init(spec)(gen)
+    params["wide"] = normal(gen, params["wide"].shape, 0.01)
+    params["cin_out"] = normal(gen, params["cin_out"].shape, 0.1)
+    params["bias"] = normal(gen, (), 0.1)
+    init_s = time.perf_counter() - t0
+    fn = serve_fn(spec, spec.shape("serve_p99"))
+    batch = spec.shape("serve_p99").dims["batch"]
+    idx = [torch.from_numpy(rng.integers(0, cfg.vocab_per_field, (
+        batch, cfg.n_sparse)).astype(np.int32)).to(dev) for _ in range(N_SCORE)]
+
+    with torch.inference_mode():
+        fn(params, {"idx": idx[0]})                         # warm-up
+        torch.cuda.synchronize()
+        reset(counters)
+        ms, _ = timed(lambda i: fn(params, {"idx": i}), idx)
+        launches = read(counters)
+        kernel_fn = recsys.embedding_bag_sum
+        err = 0.0
+        for i in idx[:4]:
+            before = read(counters)["embedding_bag"]
+            got = fn(params, {"idx": i})
+            require(read(counters)["embedding_bag"] == before + 1,
+                    "an xDeepFM request did not launch embedding_bag once")
+            recsys.embedding_bag_sum = embedding_bag_ref
+            try:
+                want = fn(params, {"idx": i})
+            finally:
+                recsys.embedding_bag_sum = kernel_fn
+            require(read(counters)["embedding_bag"] == before + 1,
+                    "the plain xDeepFM run launched embedding_bag")
+            require(bool(torch.isfinite(got).all()) and got.shape == (batch,),
+                    "xDeepFM logits are not finite or of the wrong shape")
+            require(torch.allclose(got, want, rtol=2e-5, atol=2e-5),
+                    "xDeepFM logits through embedding_bag differ from the "
+                    "plain version")
+            err = max(err, float((got - want).abs().max()))
+        busy = device_busy(torch, lambda: fn(params, {"idx": idx[0]}))
+    p50, p99 = percentiles(np, ms)
+    out["xdeepfm"] = dict(rows=cfg.total_vocab, embed_dim=cfg.embed_dim,
+                          init_s=init_s, batch=batch, requests=N_SCORE,
+                          ms_p50=p50, ms_p99=p99, max_abs_err=err,
+                          profiled_ms=busy[0], busy_ms=busy[1],
+                          launches=launches)
+    print(f"xdeepfm serve_p99: {cfg.total_vocab} rows x {cfg.embed_dim}, "
+          f"batch {batch}, {N_SCORE} requests, p50 {p50:.3f} ms p99 "
+          f"{p99:.3f} ms, max |logit err| vs plain {err:.3g}; device busy "
+          f"per request {busy_text(*busy)}; launches {launches}", flush=True)
+    del params, idx
+    free(torch)
+
+    # xDeepFM candidate scoring at smoke size (its CIN over 1M candidates
+    # would need about 300 GB), held to its CPU run
+    spec = get_arch("xdeepfm")
+    spec = replace(spec, config=spec.smoke_config)
+    cfg = spec.config
+    params = family_init(spec)(generator(SEED + 2, "cpu"))
+    params["wide"] = normal(generator(SEED + 3, "cpu"), params["wide"].shape,
+                            0.01)
+    fn = serve_fn(spec, spec.shape("retrieval_cand"))
+    one = torch.from_numpy(rng.integers(0, cfg.vocab_per_field, (
+        1, cfg.n_sparse)).astype(np.int32))
+    cand = torch.from_numpy(rng.integers(0, cfg.vocab_per_field, 1000)
+                            .astype(np.int32))
+    with torch.inference_mode():
+        want = fn(params, {"idx": one, "cand": cand})
+        on_card = {k: (v.to(dev) if isinstance(v, torch.Tensor)
+                       else [x.to(dev) for x in v] if isinstance(v, list)
+                       else {kk: vv.to(dev) for kk, vv in v.items()})
+                   for k, v in params.items()}
+        got = fn(on_card, {"idx": one.to(dev), "cand": cand.to(dev)})
+    require(torch.allclose(got.cpu(), want, rtol=2e-5, atol=2e-5),
+            "xDeepFM candidate scoring on the card differs from its CPU run")
+    print(f"xdeepfm retrieval at smoke size: {cand.numel()} candidates equal "
+          f"to the CPU run", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
@@ -708,8 +1230,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import (bitmap_extract, bitset_reduce,
                                      bitset_reduce_batch, build,
-                                     csc_partition_mask, mphf_probe_arrs,
-                                     token_fingerprints)
+                                     csc_partition_mask, embedding_bag_sum,
+                                     flash_decode, mphf_probe_arrs,
+                                     retrieval_scores, token_fingerprints)
+    # the plain versions' f32 products in full f32, as the JAX package's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -724,14 +1250,19 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = check_kernels(torch, np, dev)
+    kernels.update(check_model_kernels(torch, dev))
     counters = {"sketch_probe": mphf_probe_arrs,
                 "bitset_reduce_batch": bitset_reduce_batch,
                 "bitset_reduce": bitset_reduce,
                 "bitmap_extract": bitmap_extract,
                 "token_hash": token_fingerprints,
-                "csc_probe": csc_partition_mask}
+                "csc_probe": csc_partition_mask,
+                "retrieval_score": retrieval_scores,
+                "embedding_bag": embedding_bag_sum,
+                "flash_decode": flash_decode}
     paths = {}
     seg = main_path(torch, np, dev, counters)
+    seg_summary = dict(ingest_s=seg["ingest_s"], waves=seg["waves"])
     paths["segmented"] = seg["launches"]
     for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
                  "token_hash"):
@@ -750,6 +1281,17 @@ def main() -> int:
                  "token_hash", "csc_probe"):
         require(hunt["launches"][name] > 0,
                 f"the log_search path never launched {name}")
+    del seg
+    free(torch)
+    lm = lm_path(torch, np, dev, counters)
+    paths["lm"] = lm.pop("launches")
+    rec = recsys_path(torch, np, dev, counters)
+    paths["two_tower"] = rec["two_tower"].pop("launches")
+    paths["xdeepfm"] = rec["xdeepfm"].pop("launches")
+    for path, name in (("lm", "flash_decode"),
+                       ("two_tower", "retrieval_score"),
+                       ("xdeepfm", "embedding_bag")):
+        require(paths[path][name] > 0, f"the {path} path never launched {name}")
 
     src = "src/repro_torch/kernels/csrc/"
     meta = {
@@ -765,6 +1307,12 @@ def main() -> int:
                        "src/repro/kernels/token_hash/kernel.py:49"),
         "csc_probe": (src + "csc_probe.cu",
                       "src/repro/kernels/csc_probe/kernel.py:57"),
+        "retrieval_score": (src + "retrieval_score.cu",
+                            "src/repro/kernels/retrieval_score/kernel.py:31"),
+        "embedding_bag": (src + "embedding_bag.cu",
+                          "src/repro/kernels/embedding_bag/kernel.py:36"),
+        "flash_decode": (src + "flash_decode.cu",
+                         "src/repro/kernels/flash_decode/kernel.py:68"),
     }
     rows = [dict(name=name, route="cuda", source=meta[name][0],
                  replaces=meta[name][1],
@@ -772,13 +1320,15 @@ def main() -> int:
                  launches_by_path={k: p[name] for k, p in paths.items()},
                  max_abs_err=k["max_abs_err"], ms=k["ms"],
                  plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-                 bound_by="bytes", library_ms=None, shape=k["shape"])
+                 bound_by="bytes", library_ms=k.get("library_ms"),
+                 shape=k["shape"])
             for name, k in kernels.items()]
     total_s = time.perf_counter() - t_start
     print(json.dumps(dict(card=card, total_s=total_s,
-                          segmented=dict(ingest_s=seg["ingest_s"],
-                                         waves=seg["waves"]),
-                          csc=csc, log_search=hunt["stores"])))
+                          segmented=dict(ingest_s=seg_summary["ingest_s"],
+                                         waves=seg_summary["waves"]),
+                          csc=csc, log_search=hunt["stores"], lm=lm,
+                          recsys=rec)))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,27 @@
+"""Architecture registry: ``get_arch(id)`` / ``ARCHS`` back --arch flags.
+
+Only the ported architectures are registered; the JAX package's other ids
+raise "not yet ported"."""
+from . import llama3_8b, two_tower, xdeepfm
+from .base import ArchSpec, ShapeSpec
+
+ARCHS: dict[str, ArchSpec] = {
+    spec.id: spec for spec in (llama3_8b.SPEC, two_tower.SPEC, xdeepfm.SPEC)}
+
+NOT_YET_PORTED = ("gemma2-9b", "olmo-1b", "phi3.5-moe-42b-a6.6b",
+                  "arctic-480b", "meshgraphnet", "sasrec", "mind")
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id in ("dynawarp", "copr"):
+        raise ValueError(
+            "dynawarp/copr is the paper's log-store config, not a model "
+            "arch; use the logstore API")
+    if arch_id in NOT_YET_PORTED:
+        raise NotImplementedError(f"arch {arch_id!r} is not yet ported")
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
+    return ARCHS[arch_id]
+
+
+__all__ = ["ARCHS", "ArchSpec", "ShapeSpec", "get_arch"]

@@ -22,3 +22,9 @@ def canonical_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def generator(seed: int, device=None) -> torch.Generator:
+    """A seeded ``torch.Generator`` on ``device`` (``None`` means the GPU):
+    the port's initializers draw from it and place tensors on its device."""
+    return torch.Generator(device=resolve_device(device)).manual_seed(seed)

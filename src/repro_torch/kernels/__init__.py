@@ -5,6 +5,9 @@
   bitmap_extract  — hit bitmap -> ascending posting ids
   token_hash      — ingest-side batched token fingerprinting
   csc_probe       — CSC baseline probe (the sketch-vs-sketch comparison)
+  retrieval_score — two-tower retrieval: one query against a 1M-row corpus
+  embedding_bag   — fixed-size bag sums (xDeepFM's wide term)
+  flash_decode    — one-token GQA attention against a KV cache (LM decode)
 
 Each package has ``ops.py`` (the wrapper: checks, launch on CUDA tensors,
 plain version on CPU tensors, ``launch_count``) and ``ref.py`` (the plain
@@ -14,8 +17,13 @@ with nvcc at first use.
 from .bitmap_extract.ops import bitmap_extract
 from .bitset_ops.ops import bitset_reduce, bitset_reduce_batch
 from .csc_probe.ops import csc_partition_mask
+from .embedding_bag.ops import embedding_bag_sum
+from .flash_decode.ops import flash_decode
+from .retrieval_score.ops import retrieval_scores, retrieval_topk
 from .sketch_probe.ops import mphf_probe_arrs
 from .token_hash.ops import token_fingerprints
 
 __all__ = ["bitmap_extract", "bitset_reduce", "bitset_reduce_batch",
-           "csc_partition_mask", "mphf_probe_arrs", "token_fingerprints"]
+           "csc_partition_mask", "embedding_bag_sum", "flash_decode",
+           "mphf_probe_arrs", "retrieval_scores", "retrieval_topk",
+           "token_fingerprints"]

@@ -1,0 +1,88 @@
+"""Wrapper of the flash_decode kernel: one-token GQA attention against a KV
+cache, split over the cache (FlashDecoding) and merged by a second pass."""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import build
+from .ref import flash_decode_ref
+
+TILE = 64               # cache positions per shared-memory tile (the .cu's kTile)
+BLOCKS_PER_SM = 4       # how deep the split fills the card
+MAX_D, MAX_ROWS_X_D = 256, 1024
+
+
+@functools.cache
+def _kernel():
+    lib = build.library("flash_decode")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return lib, build.declare(lib, "flash_decode_launch", p, p, p, i, i, i, i,
+                              i, i, i, i, i, ctypes.c_float, p, p, p, p, p)
+
+
+def split_plan(b: int, hkv: int, cache_len: int, sms: int
+               ) -> tuple[int, int]:
+    """(chunk, n_splits): positions [0, cache_len) cut into n_splits
+    non-empty ranges of ``chunk`` positions (a multiple of the tile), enough
+    that B * Hkv * n_splits blocks fill ``sms`` SMs BLOCKS_PER_SM deep."""
+    want = max(1, min(-(-BLOCKS_PER_SM * sms // (b * hkv)),
+                      -(-cache_len // TILE)))
+    chunk = -(-(-(-cache_len // want)) // TILE) * TILE
+    return chunk, -(-cache_len // chunk)
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """q (B, Hq, D); k_cache, v_cache (B, S, Hkv, D); ``cache_len`` (an int,
+    1 <= cache_len <= S) valid positions -> (B, Hq, D) attention output in
+    q's dtype (float32 or bfloat16), accumulated in float32.  Query head h
+    reads kv head h // (Hq // Hkv).  A CUDA tensor launches the kernel; a
+    CPU tensor takes the plain version."""
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError("q must be (B, Hq, D) and both caches (B, S, Hkv, D)")
+    b, hq, d = q.shape
+    _, s, hkv, _ = k_cache.shape
+    if (k_cache.shape[0] != b or k_cache.shape[3] != d or hq % hkv
+            or len({q.dtype, k_cache.dtype, v_cache.dtype}) != 1
+            or q.dtype not in (torch.float32, torch.bfloat16)
+            or len({q.device, k_cache.device, v_cache.device}) != 1):
+        raise ValueError(f"flash_decode shapes q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)} or dtypes/devices disagree")
+    cache_len = int(cache_len)
+    if not 1 <= cache_len <= s:
+        raise ValueError(f"cache_len must lie in [1, {s}], not {cache_len}")
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k_cache, v_cache, cache_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
+    n_rep = hq // hkv
+    if d % 8 or d > MAX_D or n_rep * d > MAX_ROWS_X_D or b * hkv > 65_535:
+        raise ValueError(f"flash_decode takes D % 8 == 0, D <= {MAX_D}, "
+                         f"n_rep * D <= {MAX_ROWS_X_D} and B * Hkv <= 65535; "
+                         f"got D={d}, n_rep={n_rep}, B * Hkv={b * hkv}")
+    q, k_cache, v_cache = (t.contiguous() for t in (q, k_cache, v_cache))
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("flash_decode needs 16-byte-aligned tensors")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    chunk, n_splits = split_plan(b, hkv, cache_len, sms)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.empty(b * hq * n_splits, **f32)
+    l = torch.empty(b * hq * n_splits, **f32)
+    acc = torch.empty(b * hq * n_splits * d, **f32)
+    out = torch.empty_like(q)
+    lib, fn = _kernel()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                 int(q.dtype == torch.bfloat16), b, s, hkv, n_rep, d,
+                 cache_len, chunk, n_splits, float(d) ** -0.5, m.data_ptr(),
+                 l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                 build.stream_of(q))
+    build.check(lib, err, "flash_decode")
+    flash_decode.launch_count += 1
+    return out
+
+
+flash_decode.launch_count = 0

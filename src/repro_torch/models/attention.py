@@ -1,0 +1,176 @@
+"""Attention for the LM family: GQA, RoPE, blockwise prefill attention and
+KV-cache decode attention.
+
+Prefill attention is computed blockwise: a loop over query chunks and,
+inside it, over KV chunks with a running (max, sum) online softmax, so the
+(S x S) scores never exist whole.  Decode attention on a CUDA tensor goes
+through the hand-written ``flash_decode`` kernel; ``decode_attention`` is
+its plain version and the path for CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.flash_decode.ops import flash_decode
+from .layers import apply_rope, rope_table, softcap
+
+NEG_INF = -2.0e38
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, Hkv * n_rep, D) by head repetition (GQA)."""
+    if n_rep == 1:
+        return x
+    b, s, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, h, n_rep, d) \
+        .reshape(b, s, h * n_rep, d)
+
+
+def _chunk_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+                window: int | None) -> torch.Tensor:
+    """(Sq, Sk) bool mask: True = attend."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        m &= q_pos[:, None] - k_pos[None, :] < window
+    return m
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        attn_softcap: float | None = None,
+                        q_chunk: int = 512, kv_chunk: int = 1024,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Flash-style attention in O(S * chunk) memory.
+
+    q (B, Sq, Hq, D); k, v (B, Sk, Hkv, D) with Hq % Hkv == 0; ``q_offset``
+    is the absolute position of q[0].  Returns (B, Sq, Hq, D) in q's dtype.
+    Under a causal mask a KV chunk that lies wholly after a query chunk is
+    skipped: it would add exp(NEG_INF - m) = 0 to every row.
+    """
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    n_rep = hq // hkv
+    scale = d ** -0.5
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
+    # (B, Hkv, G, S, D): the group axis keeps the GQA products batched
+    qh = q.reshape(b, sq, hkv, n_rep, d).permute(0, 2, 3, 1, 4)
+    kh = k.permute(0, 2, 1, 3)[:, :, None]        # (B, Hkv, 1, Sk, D)
+    vh = v.permute(0, 2, 1, 3)[:, :, None]
+    dev = q.device
+    out = torch.empty((b, hkv, n_rep, sq, d), dtype=torch.float32, device=dev)
+    for q0 in range(0, sq, q_chunk):
+        q_blk = qh[:, :, :, q0:q0 + q_chunk]
+        nq = q_blk.shape[3]
+        q_pos = q_offset + q0 + torch.arange(nq, device=dev)
+        acc = torch.zeros((b, hkv, n_rep, nq, d), dtype=torch.float32,
+                          device=dev)
+        m_run = torch.full((b, hkv, n_rep, nq), NEG_INF, dtype=torch.float32,
+                           device=dev)
+        l_run = torch.zeros((b, hkv, n_rep, nq), dtype=torch.float32,
+                            device=dev)
+        for k0 in range(0, sk, kv_chunk):
+            if causal and k0 > q_offset + q0 + nq - 1:
+                break
+            k_blk, v_blk = kh[:, :, :, k0:k0 + kv_chunk], vh[:, :, :, k0:k0 + kv_chunk]
+            k_pos = k0 + torch.arange(k_blk.shape[3], device=dev)
+            # f32 products of the working-type inputs, as the JAX einsums'
+            # preferred_element_type=f32
+            s = torch.matmul(q_blk.to(torch.float32),
+                             k_blk.to(torch.float32).transpose(-1, -2)) * scale
+            s = softcap(s, attn_softcap)
+            mask = _chunk_mask(q_pos, k_pos, causal=causal, window=window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m_run - m_new)
+            l_run = l_run * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.matmul(
+                p.to(v_blk.dtype).to(torch.float32), v_blk.to(torch.float32))
+            m_run = m_new
+        out[:, :, :, q0:q0 + nq] = acc / l_run.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len, *,
+                     window: int | None = None,
+                     attn_softcap: float | None = None) -> torch.Tensor:
+    """One-token decode, the plain version of ``flash_decode``: q (B, 1, Hq,
+    D) against caches (B, S, Hkv, D); positions >= ``cache_len`` are masked,
+    and a window keeps only the trailing ``window`` positions."""
+    b, _, hq, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    n_rep = hq // hkv
+    qh = q.reshape(b, hkv, n_rep, d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qh.to(torch.float32),
+                          k_cache.to(torch.float32)) * (d ** -0.5)
+    scores = softcap(scores, attn_softcap)
+    pos = torch.arange(s, device=q.device)
+    valid = pos < cache_len
+    if window is not None:
+        valid &= pos >= cache_len - window
+    scores = torch.where(valid, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p.to(v_cache.dtype).to(torch.float32),
+                       v_cache.to(torch.float32))
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def seq_parallel_attention(*args, **kwargs):
+    raise NotImplementedError("seq_parallel_attention is not yet ported")
+
+
+def attention_block(x: torch.Tensor, w: dict, *, n_heads: int,
+                    n_kv_heads: int, d_head: int, rope_theta: float,
+                    causal: bool = True, window: int | None = None,
+                    attn_softcap: float | None = None, positions=None,
+                    kv_cache=None, cache_len: int | None = None,
+                    q_chunk: int = 512, kv_chunk: int = 1024,
+                    seq_parallel=None):
+    """Attention sub-layer: qkv projection, RoPE, attention, out projection.
+
+    w: dict(wq (D, Hq*Dh), wk (D, Hkv*Dh), wv, wo (Hq*Dh, D)).  Prefill
+    (``kv_cache`` None) returns (out, (k, v)), the layer's whole K/V.
+    Decode: x is (B, 1, D) and ``kv_cache`` = (k_cache, v_cache) of shape
+    (B, S, Hkv, Dh); the new token's K/V is written at ``cache_len`` IN
+    PLACE (the JAX version returns new caches from dynamic_update_slice)
+    and (out, (k_cache, v_cache)) is returned.  The decode attention is
+    ``flash_decode`` over ``cache_len + 1`` positions.
+    """
+    if seq_parallel is not None:
+        raise NotImplementedError("seq_parallel attention is not yet ported")
+    b, s, _ = x.shape
+    q = (x @ w["wq"]).reshape(b, s, n_heads, d_head)
+    k = (x @ w["wk"]).reshape(b, s, n_kv_heads, d_head)
+    v = (x @ w["wv"]).reshape(b, s, n_kv_heads, d_head)
+    if positions is None:
+        positions = (torch.arange(s, device=x.device)[None] if kv_cache is None
+                     else torch.full((1, 1), int(cache_len), device=x.device))
+    cos, sin = rope_table(positions, d_head, rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if kv_cache is None:
+        out = blockwise_attention(q, k, v, causal=causal, window=window,
+                                  attn_softcap=attn_softcap,
+                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
+        new_kv = (k, v)
+    else:
+        k_cache, v_cache = kv_cache
+        cache_len = int(cache_len)
+        k_cache[:, cache_len:cache_len + s] = k
+        v_cache[:, cache_len:cache_len + s] = v
+        if window is None and attn_softcap is None:
+            out = flash_decode(q[:, 0], k_cache, v_cache, cache_len + 1)[:, None]
+        elif x.device.type == "cpu":
+            out = decode_attention(q, k_cache, v_cache, cache_len + 1,
+                                   window=window, attn_softcap=attn_softcap)
+        else:
+            raise NotImplementedError(
+                "decode with a window or soft-capping is not yet ported to "
+                "the card (flash_decode has neither)")
+        new_kv = (k_cache, v_cache)
+    out = out.reshape(b, s, n_heads * d_head) @ w["wo"]
+    return out, new_kv

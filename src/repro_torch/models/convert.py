@@ -1,0 +1,117 @@
+"""Carry weights from the JAX package into the port.
+
+Each function takes a family's parameter pytree as nested dicts and lists
+of numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
+port's parameters on a device.  The port keeps the JAX keys, so the
+conversion is a name map that checks every key and shape it expects.
+JAX bfloat16 arrays come out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
+which ``torch.from_numpy`` refuses: they go through float32 (exact) and
+back to bfloat16.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .recsys import TwoTowerConfig, XDeepFMConfig
+from .transformer import LMConfig, check_supported
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)   # a writable copy
+
+
+def _take(tree: dict, keys, shapes: dict, device, where: str) -> dict:
+    """``tree``'s ``keys`` as tensors, each checked against its shape."""
+    extra = set(tree) - set(keys)
+    missing = set(keys) - set(tree)
+    if extra or missing:
+        raise ValueError(f"{where}: unexpected keys {sorted(extra)}, missing "
+                         f"{sorted(missing)}")
+    out = {}
+    for k in keys:
+        t = tensor_from_numpy(tree[k], device)
+        if k in shapes and tuple(t.shape) != shapes[k]:
+            raise ValueError(f"{where}.{k}: shape {tuple(t.shape)}, expected "
+                             f"{shapes[k]}")
+        out[k] = t
+    return out
+
+
+def _mlp(tree: dict, sizes, device, where: str) -> dict:
+    n = len(sizes) - 1
+    shapes = {f"w{i}": (sizes[i], sizes[i + 1]) for i in range(n)}
+    shapes.update({f"b{i}": (sizes[i + 1],) for i in range(n)})
+    return _take(tree, list(shapes), shapes, device, where)
+
+
+def lm_params_from_numpy(cfg: LMConfig, tree: dict, device=None) -> dict:
+    """A dense LM's pytree (``transformer.init_params`` keys)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    n, d, dh = cfg.n_layers, cfg.d_model, cfg.head_dim
+    layer_shapes = {"wq": (n, d, cfg.n_heads * dh),
+                    "wk": (n, d, cfg.n_kv_heads * dh),
+                    "wv": (n, d, cfg.n_kv_heads * dh),
+                    "wo": (n, cfg.n_heads * dh, d),
+                    "ln_attn": (n, d), "ln_ffn": (n, d)}
+    layers = dict(tree["layers"])
+    mlp = layers.pop("mlp")
+    out_layers = _take(layers, list(layer_shapes), layer_shapes, dev, "layers")
+    out_layers["mlp"] = _take(
+        mlp, ["w_gate", "w_up", "w_down"],
+        {"w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
+         "w_down": (n, cfg.d_ff, d)}, dev, "layers.mlp")
+    top = {k: v for k, v in tree.items() if k != "layers"}
+    keys = ["embed", "ln_final"] + ([] if cfg.tie_embeddings else ["unembed"])
+    params = _take(top, keys, {"embed": (cfg.vocab, d), "ln_final": (d,),
+                               "unembed": (d, cfg.vocab)}, dev, "params")
+    params["layers"] = out_layers
+    return params
+
+
+def twotower_params_from_numpy(cfg: TwoTowerConfig, tree: dict,
+                               device=None) -> dict:
+    dev = resolve_device(device)
+    fv, fd = cfg.field_vocab, cfg.field_dim
+    top = {k: v for k, v in tree.items() if not k.endswith("_mlp")}
+    params = _take(top, ["user_table", "item_table", "corpus"],
+                   {"user_table": (cfg.n_user_fields * fv, fd),
+                    "item_table": (cfg.n_item_fields * fv, fd),
+                    "corpus": (cfg.n_corpus, cfg.tower_mlp[-1])}, dev, "params")
+    for side, fields in (("user", cfg.n_user_fields),
+                         ("item", cfg.n_item_fields)):
+        params[f"{side}_mlp"] = _mlp(tree[f"{side}_mlp"],
+                                     [fields * fd] + list(cfg.tower_mlp), dev,
+                                     f"{side}_mlp")
+    return params
+
+
+def xdeepfm_params_from_numpy(cfg: XDeepFMConfig, tree: dict,
+                              device=None) -> dict:
+    dev = resolve_device(device)
+    m, d = cfg.n_sparse, cfg.embed_dim
+    top = {k: v for k, v in tree.items() if k not in ("cin", "dnn")}
+    params = _take(top, ["table", "wide", "cin_out", "bias"],
+                   {"table": (cfg.total_vocab, d), "wide": (cfg.total_vocab,),
+                    "cin_out": (sum(cfg.cin_layers),), "bias": ()}, dev,
+                   "params")
+    if len(tree["cin"]) != len(cfg.cin_layers):
+        raise ValueError(f"cin: {len(tree['cin'])} layers, expected "
+                         f"{len(cfg.cin_layers)}")
+    params["cin"], h_prev = [], m
+    for i, (w, h) in enumerate(zip(tree["cin"], cfg.cin_layers)):
+        t = tensor_from_numpy(w, dev)
+        if tuple(t.shape) != (h_prev * m, h):
+            raise ValueError(f"cin[{i}]: shape {tuple(t.shape)}, expected "
+                             f"{(h_prev * m, h)}")
+        params["cin"].append(t)
+        h_prev = h
+    params["dnn"] = _mlp(tree["dnn"], [m * d] + list(cfg.mlp_sizes) + [1],
+                         dev, "dnn")
+    return params

@@ -2,8 +2,10 @@
 kernel (interpret mode) and its jnp oracle, at the edges the query path
 meets: ragged W, Q not a power of two, empty / full / over-max_hits rows,
 absent keys, an MPHF with fallback keys, token rows of length 0 and L,
-CSC anchors that wrap at m.  All data is integer, so the tolerance is
-exact equality.
+CSC anchors that wrap at m.  The store's data is integer, so there the
+tolerance is exact equality.  The model-serving kernels (retrieval_score,
+embedding_bag, flash_decode) are float: f32 is held at rtol/atol 2e-5 (the
+packages sum in other orders); bf16 as stated at its test.
 
 The ``requires_cuda`` cases hold each CUDA kernel against its plain
 version on the card; they skip where there is no GPU.  The JAX package
@@ -26,6 +28,13 @@ from repro_torch.kernels.bitset_ops.ops import bitset_reduce, bitset_reduce_batc
 from repro_torch.kernels.bitset_ops.ref import bitset_reduce_batch_ref
 from repro_torch.kernels.csc_probe.ops import csc_partition_mask
 from repro_torch.kernels.csc_probe.ref import csc_probe_ref
+from repro_torch.kernels.embedding_bag.ops import embedding_bag_sum
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.flash_decode.ops import flash_decode, split_plan
+from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.retrieval_score.ops import (retrieval_scores,
+                                                     retrieval_topk)
+from repro_torch.kernels.retrieval_score.ref import retrieval_score_ref
 from repro_torch.kernels.sketch_probe.ops import mphf_probe_arrs
 from repro_torch.kernels.sketch_probe.ref import sketch_probe_ref
 from repro_torch.kernels.token_hash.ops import token_fingerprints
@@ -57,13 +66,23 @@ def jx():
     from repro.kernels.token_hash.ops import token_fingerprints
     from repro.kernels.token_hash.ref import token_hash_ref
     from repro.baselines.csc import CSCSketch
+    from repro.kernels.embedding_bag.ops import embedding_bag_sum
+    from repro.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro.kernels.flash_decode.ops import flash_decode
+    from repro.kernels.flash_decode.ref import flash_decode_ref
+    from repro.kernels.retrieval_score.ops import (retrieval_scores,
+                                                   retrieval_topk)
+    from repro.kernels.retrieval_score.ref import retrieval_score_ref
     return SimpleNamespace(
         jnp=jnp, mphf=mphf, probe=mphf_probe_arrs, reduce=bitset_reduce,
         reduce_batch=bitset_reduce_batch,
         reduce_batch_ref=bitset_reduce_batch_ref, extract=bitmap_extract,
         extract_ref=bitmap_extract_ref, token_hash=token_fingerprints,
         token_hash_ref=token_hash_ref, csc_mask=csc_partition_mask,
-        CSCSketch=CSCSketch)
+        CSCSketch=CSCSketch, ebag=embedding_bag_sum,
+        ebag_ref=embedding_bag_ref, flash_decode=flash_decode,
+        flash_decode_ref=flash_decode_ref, scores=retrieval_scores,
+        topk=retrieval_topk, scores_ref=retrieval_score_ref)
 
 
 # ----------------------------------------------------------------- inputs
@@ -279,6 +298,127 @@ def test_bitmap_extract_plain_matches_pallas_and_jnp(jx, q, w, max_hits):
         assert (counts.numpy() > max_hits).any(), "case must overflow a row"
 
 
+# ------------------------------------------------ model-serving kernels
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# the tests/test_kernels.py cases, plus C = 1
+RETRIEVAL_CASES = [(256, 32), (5000, 64), (10000, 256), (1, 256)]
+# the tests/test_kernels.py cases, plus xDeepFM's wide term: D = 1, BAG = 39
+EBAG_CASES = [(100, 8, 8, 2), (1000, 32, 64, 8), (500, 128, 16, 4),
+              (39 * 128, 1, 512, 39)]
+# the tests/test_kernels.py cases (b, s, hq, hkv, d, cache_len)
+DECODE_CASES = [(2, 128, 4, 2, 16, 100), (1, 700, 8, 8, 32, 650),
+                (4, 64, 16, 2, 8, 64), (2, 256, 6, 3, 64, 17)]
+
+
+def _normal(seed, *shape):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _decode_inputs(seed, b, s, hq, hkv, d):
+    return (_normal(seed, b, hq, d), _normal(seed + 1, b, s, hkv, d),
+            _normal(seed + 2, b, s, hkv, d))
+
+
+@pytest.mark.parametrize("c,d", RETRIEVAL_CASES)
+def test_retrieval_score_plain_matches_pallas_and_jnp(jx, c, d):
+    jnp = jx.jnp
+    corpus, q = _normal(c + d, c, d), _normal(c + d + 1, d)
+    got = retrieval_scores(torch.from_numpy(corpus), torch.from_numpy(q))
+    assert got.dtype == torch.float32 and got.shape == (c,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jx.scores(
+        jnp.asarray(corpus), jnp.asarray(q))), **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jx.scores_ref(
+        jnp.asarray(corpus), jnp.asarray(q)[None])), **F32_TOL)
+    k = min(c, 10)
+    vals, ids = retrieval_topk(torch.from_numpy(corpus), torch.from_numpy(q),
+                               k)
+    j_vals, j_ids = jx.topk(jnp.asarray(corpus), jnp.asarray(q), k)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(j_ids))
+    np.testing.assert_allclose(vals.numpy(), np.asarray(j_vals), **F32_TOL)
+
+
+@pytest.mark.parametrize("v,d,b,bag", EBAG_CASES)
+def test_embedding_bag_plain_matches_pallas_and_jnp(jx, v, d, b, bag):
+    jnp = jx.jnp
+    table = _normal(v + d, v, d)
+    idx = np.random.default_rng(b).integers(0, v, (b, bag)).astype(np.int32)
+    idx[0, :] = idx[0, 0]                 # a bag that repeats one row
+    got = embedding_bag_sum(torch.from_numpy(table), torch.from_numpy(idx))
+    assert got.dtype == torch.float32 and got.shape == (b, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jx.ebag(
+        jnp.asarray(table), jnp.asarray(idx))), **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jx.ebag_ref(
+        jnp.asarray(table), jnp.asarray(idx))), **F32_TOL)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,clen", DECODE_CASES)
+def test_flash_decode_plain_matches_pallas_and_jnp(jx, b, s, hq, hkv, d,
+                                                   clen):
+    jnp = jx.jnp
+    q, k, v = _decode_inputs(b + s + d, b, s, hq, hkv, d)
+    got = flash_decode(*map(torch.from_numpy, (q, k, v)), clen)
+    assert got.dtype == torch.float32 and got.shape == (b, hq, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jx.flash_decode(
+        *map(jnp.asarray, (q, k, v)), jnp.int32(clen), block_s=64)), **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jx.flash_decode_ref(
+        *map(jnp.asarray, (q, k, v)), jnp.int32(clen))), **F32_TOL)
+
+
+def test_flash_decode_plain_bf16_matches_pallas_and_jnp(jx):
+    """bf16 caches, as on the llama3 path.  Both packages accumulate in f32
+    and round the output to bf16 (8 significant bits): an element may
+    differ by one bf16 step of its value, rtol 2^-7.  Each side also rounds
+    its probabilities to bf16 before the product with V (the Pallas kernel
+    the unnormalised ones, the plain version the normalised ones).  That
+    moves an output by ~2^-9 of the output's own scale per side, not of
+    v's (an average over many positions is far smaller than v):
+    atol 2^-8 * max|want|."""
+    import ml_dtypes
+    jnp = jx.jnp
+    b, s, hq, hkv, d, clen = 2, 300, 8, 2, 64, 257
+    q, k, v = (a.astype(ml_dtypes.bfloat16)
+               for a in _decode_inputs(7, b, s, hq, hkv, d))
+    got = flash_decode(*(torch.from_numpy(a.astype(np.float32))
+                         .to(torch.bfloat16) for a in (q, k, v)), clen)
+    assert got.dtype == torch.bfloat16
+    got = got.to(torch.float32).numpy()
+    for want in (jx.flash_decode(*map(jnp.asarray, (q, k, v)),
+                                 jnp.int32(clen), block_s=64),
+                 jx.flash_decode_ref(*map(jnp.asarray, (q, k, v)),
+                                     jnp.int32(clen))):
+        want = np.asarray(want).astype(np.float32)
+        np.testing.assert_allclose(got, want, rtol=2 ** -7,
+                                   atol=2 ** -8 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("b,s,clen", [(8, 1056, 1055), (1, 32768, 32768)])
+def test_flash_decode_bf16_tolerance_rejects_planted_faults(b, s, clen):
+    """The bf16 tolerance above (and in ``chip_smoke.py``) scales with the
+    output, not with v, so it separates: at the LM path's own call and at
+    a 32k cache (where the output is ~1/100 of v), the attention with the
+    last of the B = 8 plan's splits dropped, or the newest position
+    dropped, falls outside it."""
+    hq, hkv, d = 32, 8, 128
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _decode_inputs(11, b, s, hq, hkv, d))
+    want = flash_decode(q, k, v, clen).to(torch.float32)
+    tol = dict(rtol=2 ** -7, atol=2 ** -8 * float(want.abs().max()))
+    chunk, n_splits = split_plan(8, hkv, clen, 132)
+    assert n_splits > 1
+    for n in ((n_splits - 1) * chunk, clen - 1):
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(
+                flash_decode(q, k, v, n).to(torch.float32), want, **tol)
+
+
+def test_flash_decode_split_plan_covers_the_cache():
+    for b, hkv, clen in ((8, 8, 32768), (8, 8, 30001), (1, 1, 1),
+                         (8, 8, 1056), (1, 8, 700), (128, 8, 5)):
+        chunk, n = split_plan(b, hkv, clen, 132)
+        assert chunk % 64 == 0 and (n - 1) * chunk < clen <= n * chunk
+    assert split_plan(8, 8, 32768, 132)[1] * 64 >= 4 * 132
+
+
 def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         bitset_reduce_batch(torch.zeros((2, 3), dtype=torch.int32))
@@ -306,6 +446,25 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         csc_partition_mask(CSCSketch.build(m_bits=1 << 10),
                            torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        retrieval_scores(torch.zeros((4, 8)), torch.zeros(7))
+    with pytest.raises(ValueError):
+        retrieval_scores(torch.zeros((4, 8), dtype=torch.float64),
+                         torch.zeros(8, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        embedding_bag_sum(torch.zeros((4, 8)),
+                          torch.zeros((2, 3), dtype=torch.int64))
+    with pytest.raises(ValueError):        # an index past V
+        embedding_bag_sum(torch.zeros((4, 8)),
+                          torch.full((2, 3), 4, dtype=torch.int32))
+    q, kv = torch.zeros((1, 4, 8)), torch.zeros((1, 10, 2, 8))
+    for clen in (0, 11):
+        with pytest.raises(ValueError):
+            flash_decode(q, kv, kv, clen)
+    with pytest.raises(ValueError):        # Hq not a multiple of Hkv
+        flash_decode(torch.zeros((1, 3, 8)), kv, kv, 5)
+    with pytest.raises(ValueError):
+        flash_decode(q.to(torch.float64), kv, kv, 5)
 
 
 # ------------------------------------------------------ CUDA, on the card
@@ -407,3 +566,54 @@ def test_cuda_line_fingerprinter_matches_cpu(cuda):
     assert token_fingerprints.launch_count >= before + 2
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("c,d", RETRIEVAL_CASES + [(1 << 20, 256),
+                                                   (1_000_003, 256),
+                                                   (4097, 30)])
+def test_cuda_retrieval_score_matches_plain(cuda, c, d):
+    corpus = torch.from_numpy(_normal(c + d, c, d)).to(cuda)
+    q = torch.from_numpy(_normal(c + d + 1, d)).to(cuda)
+    before = retrieval_scores.launch_count
+    got = retrieval_scores(corpus, q)
+    torch.cuda.synchronize()
+    assert retrieval_scores.launch_count == before + 1
+    torch.testing.assert_close(got, retrieval_score_ref(corpus, q),
+                               rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("v,d,b,bag", EBAG_CASES + [(39_000_000, 1, 512, 39),
+                                                    (10_000, 64, 512, 39),
+                                                    (1000, 17, 33, 5)])
+def test_cuda_embedding_bag_matches_plain(cuda, v, d, b, bag):
+    table = torch.from_numpy(_normal(v + d, v, d)).to(cuda)
+    idx = torch.from_numpy(np.random.default_rng(b).integers(
+        0, v, (b, bag)).astype(np.int32)).to(cuda)
+    before = embedding_bag_sum.launch_count
+    got = embedding_bag_sum(table, idx)
+    torch.cuda.synchronize()
+    assert embedding_bag_sum.launch_count == before + 1
+    torch.testing.assert_close(got, embedding_bag_ref(table, idx), **F32_TOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,s,hq,hkv,d,clen", DECODE_CASES + [
+    (8, 4096, 32, 8, 128, 4096), (8, 4096, 32, 8, 128, 3001),
+    (2, 1000, 4, 4, 128, 1), (1, 333, 4, 1, 256, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_matches_plain(cuda, b, s, hq, hkv, d, clen, dtype):
+    """f32 at 2e-5; bf16 as the CPU bf16 test states it: rtol 2^-7 for the
+    output's rounding, atol 2^-8 * max|want| for the plain version's
+    rounding of its probabilities (the kernel keeps them in f32)."""
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _decode_inputs(b + s + d, b, s, hq, hkv, d))
+    before = flash_decode.launch_count
+    got = flash_decode(q, k, v, clen)
+    torch.cuda.synchronize()
+    assert flash_decode.launch_count == before + 1 and got.dtype == dtype
+    want = flash_decode_ref(q, k, v, clen).to(torch.float32)
+    tol = F32_TOL if dtype == torch.float32 else dict(
+        rtol=2 ** -7, atol=2 ** -8 * float(want.abs().max()))
+    torch.testing.assert_close(got.to(torch.float32), want, **tol)

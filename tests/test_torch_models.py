@@ -1,0 +1,352 @@
+"""The port's model-serving paths against the JAX package, with weights
+carried across by ``repro_torch.models.convert``: the shared layers,
+blockwise and decode attention, llama3's smoke config through prefill,
+decode and greedy generation, two-tower retrieval and xDeepFM scoring.
+Inputs are made with numpy from a seed and handed to both packages.
+
+Tolerances: float32 throughout, 2e-5 for single layers and 2e-4 for whole
+models (as ``tests/test_models.py`` holds decode against prefill): the two
+packages sum in other orders, and a 3-layer model compounds that."""
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ARCHS, get_arch
+from repro_torch.launch import serve as port_serve
+from repro_torch.launch.steps import family_init, serve_fn
+from repro_torch.models import attention as pa
+from repro_torch.models import layers as pl
+from repro_torch.models import recsys as prs
+from repro_torch.models import transformer as ptf
+from repro_torch.models.convert import (lm_params_from_numpy,
+                                        tensor_from_numpy,
+                                        twotower_params_from_numpy,
+                                        xdeepfm_params_from_numpy)
+
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+
+from repro.configs import get_arch as ref_get_arch  # noqa: E402
+from repro.launch.steps import family_init as ref_family_init  # noqa: E402
+from repro.models import attention as ja  # noqa: E402
+from repro.models import layers as jl  # noqa: E402
+from repro.models import recsys as jrs  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+
+LAYER_TOL = dict(rtol=2e-5, atol=2e-5)
+MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.detach().cpu().numpy(), np.asarray(want),
+                               **tol)
+
+
+def _numpy_params(arch_id, seed):
+    """The JAX smoke init as a numpy tree, its all-zero leaves (norm gains,
+    the wide table, cin_out, biases) replaced by seeded N(0, 0.1^2) values
+    so that every weight takes part in the comparison."""
+    rng = np.random.default_rng(seed)
+    params = ref_family_init(ref_get_arch(arch_id), smoke=True)(
+        jax.random.PRNGKey(seed))
+
+    def fill(a):
+        a = np.asarray(a)
+        return a if a.any() else (0.1 * rng.normal(size=a.shape)).astype(a.dtype)
+
+    return jax.tree.map(fill, params)
+
+
+# ------------------------------------------------------------------ layers
+def test_rms_norm_matches_reference():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3, 5, 64)).astype(np.float32)
+    w = (0.1 * rng.normal(size=64)).astype(np.float32)
+    _close(pl.rms_norm(torch.from_numpy(x), torch.from_numpy(w)),
+           jl.rms_norm(jnp.asarray(x), jnp.asarray(w)), LAYER_TOL)
+    _close(pl.rms_norm(torch.from_numpy(x)), jl.rms_norm(jnp.asarray(x)),
+           LAYER_TOL)
+    _close(pl.layer_norm_nonparam(torch.from_numpy(x)),
+           jl.layer_norm_nonparam(jnp.asarray(x)), LAYER_TOL)
+
+
+def test_rope_matches_reference():
+    """The half-split layout: a reference in the interleaved layout would
+    differ here."""
+    rng = np.random.default_rng(1)
+    pos = np.arange(7)[None].repeat(2, 0) + np.array([[0], [40]])
+    x = rng.normal(size=(2, 7, 3, 16)).astype(np.float32)
+    cos, sin = pl.rope_table(torch.from_numpy(pos), 16, 500000.0)
+    jcos, jsin = jl.rope_table(jnp.asarray(pos), 16, 500000.0)
+    _close(cos, jcos, LAYER_TOL)
+    _close(sin, jsin, LAYER_TOL)
+    _close(pl.apply_rope(torch.from_numpy(x), cos, sin),
+           jl.apply_rope(jnp.asarray(x), jcos, jsin), LAYER_TOL)
+
+
+def test_mlp_apply_matches_reference():
+    rng = np.random.default_rng(2)
+    sizes = [12, 32, 16, 4]
+    tree = {f"w{i}": rng.normal(size=(sizes[i], sizes[i + 1])).astype(np.float32)
+            for i in range(3)}
+    tree.update({f"b{i}": rng.normal(size=sizes[i + 1]).astype(np.float32)
+                 for i in range(3)})
+    x = rng.normal(size=(5, 12)).astype(np.float32)
+    got = pl.mlp_apply({k: torch.from_numpy(v) for k, v in tree.items()},
+                       torch.from_numpy(x))
+    want = jl.mlp_apply({k: jnp.asarray(v) for k, v in tree.items()},
+                        jnp.asarray(x))
+    _close(got, want, LAYER_TOL)
+    _close(pl.softcap(torch.from_numpy(x), 3.0), jl.softcap(jnp.asarray(x), 3.0),
+           LAYER_TOL)
+
+
+# --------------------------------------------------------------- attention
+@pytest.mark.parametrize("sq,sk,hq,hkv,causal,window,cap", [
+    (37, 37, 4, 2, True, None, None),       # ragged chunks, GQA
+    (16, 40, 2, 2, False, None, None),      # cross lengths, MHA
+    (33, 33, 6, 3, True, 9, 20.0),          # window and softcap
+])
+def test_blockwise_attention_matches_reference(sq, sk, hq, hkv, causal,
+                                               window, cap):
+    rng = np.random.default_rng(sq + sk + hq)
+    q = rng.normal(size=(2, sq, hq, 16)).astype(np.float32)
+    k = rng.normal(size=(2, sk, hkv, 16)).astype(np.float32)
+    v = rng.normal(size=(2, sk, hkv, 16)).astype(np.float32)
+    kw = dict(causal=causal, window=window, attn_softcap=cap, q_chunk=8,
+              kv_chunk=16)
+    got = pa.blockwise_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+    want = ja.blockwise_attention(*map(jnp.asarray, (q, k, v)), **kw)
+    _close(got, want, LAYER_TOL)
+
+
+@pytest.mark.parametrize("window,cap", [(None, None), (5, 30.0)])
+def test_decode_attention_matches_reference(window, cap):
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(3, 1, 8, 16)).astype(np.float32)
+    k = rng.normal(size=(3, 50, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(3, 50, 2, 16)).astype(np.float32)
+    got = pa.decode_attention(*map(torch.from_numpy, (q, k, v)), 31,
+                              window=window, attn_softcap=cap)
+    want = ja.decode_attention(*map(jnp.asarray, (q, k, v)), jnp.int32(31),
+                               window=window, attn_softcap=cap)
+    _close(got, want, LAYER_TOL)
+    x = torch.from_numpy(k)
+    assert torch.equal(pa.repeat_kv(x, 3),
+                       torch.from_numpy(np.array(ja.repeat_kv(jnp.asarray(k), 3))))
+
+
+# ----------------------------------------------------------------- llama3
+@pytest.fixture(scope="module")
+def llama():
+    tree = _numpy_params("llama3-8b", 0)
+    cfg = get_arch("llama3-8b").smoke_config
+    return (ref_get_arch("llama3-8b").smoke_config, cfg,
+            jax.tree.map(jnp.asarray, tree),
+            lm_params_from_numpy(cfg, tree, "cpu"))
+
+
+def test_llama3_prefill_decode_and_greedy_tokens_match_reference(llama):
+    jcfg, cfg, jp, pp = llama
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 24)) \
+        .astype(np.int32)
+    jcache, jlogits = jtf.prefill(jcfg, jp, jnp.asarray(toks))
+    cache, logits = ptf.prefill(cfg, pp, torch.from_numpy(toks))
+    _close(logits, jlogits, MODEL_TOL)
+    _close(cache["k"], jcache["k"], MODEL_TOL)
+    _close(cache["v"], jcache["v"], MODEL_TOL)
+
+    jfull = jtf.init_cache(jcfg, 2, 32, jnp.float32)
+    jfull = {n: jfull[n].at[:, :, :24].set(jcache[n]) for n in ("k", "v")}
+    full = ptf.init_cache(cfg, 2, 32, device="cpu")
+    for n in ("k", "v"):
+        full[n][:, :, :24] = cache[n]
+    jtok = jnp.argmax(jlogits, -1).astype(jnp.int32)
+    tok = logits.argmax(-1).to(torch.int32)
+    for i in range(8):                       # 8 greedy tokens
+        jfull, jtok, jstep = jtf.decode_step(jcfg, jp, jfull, jtok, 24 + i)
+        full, tok, step = ptf.decode_step(cfg, pp, full, tok, 24 + i)
+        _close(step, jstep, MODEL_TOL)
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+    _close(full["k"], jfull["k"], MODEL_TOL)
+
+
+def test_llama3_decode_matches_prefill_of_the_longer_prompt(llama):
+    """The port's own invariant, as the JAX package's
+    ``test_lm_decode_matches_prefill``: a decode step after prefill gives
+    the logits of prefilling the prompt one token longer."""
+    _, cfg, _, pp = llama
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 20)).astype(np.int32))
+    cache, logits = ptf.prefill(cfg, pp, toks)
+    full = ptf.init_cache(cfg, 2, 24, device="cpu")
+    for n in ("k", "v"):
+        full[n][:, :, :20] = cache[n]
+    nxt = logits.argmax(-1).to(torch.int32)
+    _, _, step = ptf.decode_step(cfg, pp, full, nxt, 20)
+    _, longer = ptf.prefill(cfg, pp, torch.cat([toks, nxt[:, None]], 1))
+    np.testing.assert_allclose(step.numpy(), longer.numpy(), **MODEL_TOL)
+
+
+def test_unported_lm_features_raise():
+    cfg = get_arch("llama3-8b").smoke_config
+    gen = torch.Generator().manual_seed(0)
+    for change in (dict(n_experts=4), dict(sliding_window=8,
+                                           local_global_period=2),
+                   dict(attn_softcap=50.0), dict(post_norm=True),
+                   dict(act_model_axis="model")):
+        with pytest.raises(NotImplementedError):
+            ptf.init_params(replace(cfg, **change), gen)
+    with pytest.raises(NotImplementedError):
+        pa.seq_parallel_attention()
+
+
+# ------------------------------------------------------------------ recsys
+def test_two_tower_retrieval_and_serve_match_reference():
+    tree = _numpy_params("two-tower-retrieval", 6)
+    spec = get_arch("two-tower-retrieval")
+    cfg = spec.smoke_config
+    jcfg = ref_get_arch("two-tower-retrieval").smoke_config
+    jp = jax.tree.map(jnp.asarray, tree)
+    pp = twotower_params_from_numpy(cfg, tree, "cpu")
+    rng = np.random.default_rng(7)
+    user = rng.integers(0, cfg.field_vocab, (1, cfg.n_user_fields)) \
+        .astype(np.int32)
+    fn = serve_fn(replace(spec, config=cfg), spec.shape("retrieval_cand"))
+    scores = fn(pp, {"user_idx": torch.from_numpy(user)})
+    want = jrs.twotower_retrieval(jcfg, jp, {"user_idx": jnp.asarray(user)})
+    _close(scores, want, LAYER_TOL)
+    vals, ids = torch.topk(scores, 10)
+    jvals, jids = jax.lax.top_k(want, 10)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    _close(vals, jvals, LAYER_TOL)
+
+    batch = spec.smoke_batch(cfg, np.random.default_rng(8), "cpu")
+    got = serve_fn(replace(spec, config=cfg), spec.shape("serve_p99"))(pp, batch)
+    jbatch = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
+    _close(got, jrs.twotower_serve(jcfg, jp, jbatch), LAYER_TOL)
+
+
+def test_xdeepfm_logits_and_retrieval_match_reference():
+    tree = _numpy_params("xdeepfm", 9)
+    spec = get_arch("xdeepfm")
+    cfg = spec.smoke_config
+    jcfg = ref_get_arch("xdeepfm").smoke_config
+    jp = jax.tree.map(jnp.asarray, tree)
+    pp = xdeepfm_params_from_numpy(cfg, tree, "cpu")
+    batch = spec.smoke_batch(cfg, np.random.default_rng(10), "cpu")
+    got = serve_fn(replace(spec, config=cfg), spec.shape("serve_p99"))(pp, batch)
+    want = jrs.xdeepfm_logits(jcfg, jp, jnp.asarray(batch["idx"].numpy()))
+    _close(got, want, MODEL_TOL)
+
+    rng = np.random.default_rng(11)
+    one = batch["idx"][:1]
+    cand = rng.integers(0, cfg.vocab_per_field, 300).astype(np.int32)
+    got = serve_fn(replace(spec, config=cfg), spec.shape("retrieval_cand"))(
+        pp, {"idx": one, "cand": torch.from_numpy(cand)})
+    want = jrs.xdeepfm_retrieval(jcfg, jp, {"idx": jnp.asarray(one.numpy()),
+                                            "cand": jnp.asarray(cand)})
+    _close(got, want, MODEL_TOL)
+
+
+def test_embedding_bag_modes_match_reference():
+    rng = np.random.default_rng(12)
+    table = rng.normal(size=(50, 6)).astype(np.float32)
+    idx = rng.integers(0, 50, (4, 3, 5)).astype(np.int32)
+    mask = rng.integers(0, 2, (4, 3, 5)).astype(np.float32)
+    mask[0, 0] = 0                                 # an empty bag
+    for mode in ("sum", "mean"):
+        for m in (None, mask):
+            got = prs.embedding_bag(torch.from_numpy(table),
+                                    torch.from_numpy(idx), mode=mode,
+                                    mask=None if m is None else torch.from_numpy(m))
+            want = jrs.embedding_bag(jnp.asarray(table), jnp.asarray(idx),
+                                     mode=mode,
+                                     mask=None if m is None else jnp.asarray(m))
+            _close(got, want, LAYER_TOL)
+    np.testing.assert_array_equal(prs._field_offsets([5, 7, 9]).numpy(),
+                                  np.asarray(jrs._field_offsets([5, 7, 9])))
+
+
+# --------------------------------------------------------- registry, glue
+def test_registry_holds_the_ported_archs_only():
+    assert sorted(ARCHS) == ["llama3-8b", "two-tower-retrieval", "xdeepfm"]
+    for arch in ("gemma2-9b", "sasrec", "mind", "meshgraphnet"):
+        with pytest.raises(NotImplementedError):
+            get_arch(arch)
+    with pytest.raises(ValueError):
+        get_arch("dynawarp")
+    with pytest.raises(KeyError):
+        get_arch("no-such-arch")
+    full, ref = get_arch("llama3-8b").config, ref_get_arch("llama3-8b").config
+    assert full.param_count() == ref.param_count()
+    assert get_arch("xdeepfm").config.param_count() == \
+        ref_get_arch("xdeepfm").config.param_count()
+    assert get_arch("two-tower-retrieval").config.param_count() == \
+        ref_get_arch("two-tower-retrieval").config.param_count()
+
+
+def test_port_init_has_the_reference_shapes():
+    for arch in ARCHS:
+        params = family_init(get_arch(arch), smoke=True)(
+            torch.Generator().manual_seed(0))
+        ref = ref_family_init(ref_get_arch(arch), smoke=True)(
+            jax.random.PRNGKey(0))
+        got = {k: tuple(v.shape) for k, v in _flat(params).items()}
+        want = {k: tuple(np.shape(v)) for k, v in _flat(ref).items()}
+        assert got == want, arch
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}/{k}"))
+    return out
+
+
+def test_converter_carries_bfloat16_exactly():
+    ml_dtypes = pytest.importorskip("ml_dtypes")
+    a = np.random.default_rng(13).normal(size=(5, 7)).astype(ml_dtypes.bfloat16)
+    t = tensor_from_numpy(a, "cpu")
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.to(torch.float32).numpy(),
+                                  a.astype(np.float32))
+    with pytest.raises(ValueError):
+        lm_params_from_numpy(get_arch("llama3-8b").smoke_config,
+                             {"embed": np.zeros((2, 2)), "layers": {"mlp": {}}},
+                             "cpu")
+
+
+def test_default_device_without_gpu_raises(monkeypatch):
+    from repro_torch.device import generator
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generator(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_serve.main(["--arch", "xdeepfm"])
+
+
+@pytest.mark.parametrize("arch,want", [("llama3-8b", "generated (4, 16)"),
+                                       ("two-tower-retrieval", "8 requests")])
+def test_serve_runs_on_cpu_at_smoke_size(arch, want, capsys):
+    assert port_serve.main(["--arch", arch, "--device", "cpu"]) == 0
+    assert want in capsys.readouterr().out
+    with pytest.raises(NotImplementedError):
+        port_serve.main(["--arch", "dynawarp", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags", [["--lines", "100"], ["--store", "x"],
+                                   ["--flush-deadline-ms", "1.5"]])
+def test_serve_store_flags_raise_until_ported(flags):
+    """The store server's options are named as in the JAX driver, but are
+    refused, not silently ignored, with an LM or recsys arch."""
+    with pytest.raises(NotImplementedError, match=flags[0]):
+        port_serve.main(["--arch", "llama3-8b", "--device", "cpu", *flags])

@@ -136,7 +136,13 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.kernels.build, repro_torch.baselines, "
             "repro_torch.kernels.token_hash.ops, "
             "repro_torch.kernels.csc_probe.ops, "
-            "repro_torch.core.query, repro_torch.core.device_query; "
+            "repro_torch.core.query, repro_torch.core.device_query, "
+            "repro_torch.models.transformer, repro_torch.models.recsys, "
+            "repro_torch.models.convert, repro_torch.configs, "
+            "repro_torch.launch.serve, "
+            "repro_torch.kernels.retrieval_score.ops, "
+            "repro_torch.kernels.embedding_bag.ops, "
+            "repro_torch.kernels.flash_decode.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
