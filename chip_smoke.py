@@ -32,7 +32,8 @@ Phases (any failure raises, so the exit code is not 0):
      ``flash_decode``) against their plain versions on the card, at their
      paths' shapes and at the edges, within the tolerance stated at
      ``check_model_kernels``, and time each beside one PyTorch library call
-     that computes the same function;
+     that computes the same function (``flash_decode`` also at the LM
+     path's own call), with each time's share of its bytes bound;
   8. the LM serving path: llama3-8b at full width (32 layers, bf16, 8.03B
      parameters from a seeded init), prefill of 8 prompts of 1024 tokens,
      then 31 greedy decode steps through ``flash_decode``; one decode step
@@ -105,6 +106,7 @@ DECODE_SHAPES = ((8, 32768, 32, 8, 128, 32768, "bfloat16"),
                  (4, 1037, 32, 8, 128, 1, "bfloat16"),
                  (4, 2048, 8, 8, 128, 2000, "bfloat16"),
                  (4, 4096, 32, 8, 128, 4096, "float32"))
+LM_CALL = 2          # DECODE_SHAPES' LM path call, timed beside the main one
 
 
 def require(cond: bool, what: str) -> None:
@@ -361,14 +363,15 @@ def check_kernels(torch, np, dev) -> dict:
 
 # ---------------------------------------------------------------- phase 7
 def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
-               main, faults=None) -> dict:
+               main, faults=None, also=()) -> dict:
     """``kernel`` against ``plain`` on every case (a tuple whose last item
     names it) within ``tol(*case, want)`` = (rtol, atol); then kernel, plain
     and ``library`` timed at ``cases[main]``, with the bytes bound of that
-    case.  Each returns one tensor.  The reading of an output is its
-    largest |err| / (atol + rtol |want|): at most 1 for the kernel, and
-    above 1 for every planted fault that ``faults(*case)`` yields as
-    (label, output) pairs, so that the tolerance is shown to separate."""
+    case, and kernel and ``library`` at each case of ``also``.  Each
+    returns one tensor.  The reading of an output is its largest |err| /
+    (atol + rtol |want|): at most 1 for the kernel, and above 1 for every
+    planted fault that ``faults(*case)`` yields as (label, output) pairs,
+    so that the tolerance is shown to separate."""
     err, worst, caught, shapes, readings = 0.0, 0.0, float("inf"), [], []
     for case in cases:
         got, want = kernel(*case), plain(*case)
@@ -407,7 +410,18 @@ def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
     print(f"kernel {name}: within tolerance on {len(cases)} cases {shapes}, "
           f"max |err| {err:.3g}, reading <= {worst:.3g}{faulted}; at "
           f"{case[-1]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-          f"{library_ms:.4f} ms, bound {bound:.4f} ms (bytes)", flush=True)
+          f"{library_ms:.4f} ms, bound {bound:.4f} ms (bytes), kernel at "
+          f"{100 * bound / ms:.1f}% of the bound, library at "
+          f"{100 * bound / library_ms:.1f}%", flush=True)
+    for i in also:
+        c = cases[i]
+        k_ms = device_ms(torch, lambda: kernel(*c))
+        lib_ms = device_ms(torch, lambda: library(*c))
+        b_ms = bytes_of(*c) / HBM_BYTES_PER_S * 1e3
+        print(f"kernel {name} at {c[-1]}: kernel {k_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms (bytes), kernel at "
+              f"{100 * b_ms / k_ms:.1f}% of the bound, library at "
+              f"{100 * b_ms / lib_ms:.1f}%", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 library_ms=library_ms, shape=case[-1])
 
@@ -429,7 +443,9 @@ def check_model_kernels(torch, dev) -> dict:
     from repro_torch.device import generator
     from repro_torch.kernels.embedding_bag.ops import embedding_bag_sum
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-    from repro_torch.kernels.flash_decode.ops import flash_decode, split_plan
+    from repro_torch.kernels.flash_decode.ops import (blocks_per_sm,
+                                                      flash_decode,
+                                                      split_plan)
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.kernels.retrieval_score.ops import retrieval_scores
     from repro_torch.kernels.retrieval_score.ref import retrieval_score_ref
@@ -494,7 +510,9 @@ def check_model_kernels(torch, dev) -> dict:
         return 2 ** -7, 2 ** -8 * float(want.float().abs().max())
 
     def faults(q, k, v, clen, _):
-        chunk, n_splits = split_plan(q.shape[0], k.shape[2], clen, sms)
+        chunk, n_splits = split_plan(
+            q.shape[0], k.shape[2], clen, sms,
+            blocks_per_sm(q.shape[1] // k.shape[2], q.shape[2], q.dtype, dev))
         if n_splits > 1:
             yield "last split dropped", flash_decode(q, k, v,
                                                      (n_splits - 1) * chunk)
@@ -508,7 +526,7 @@ def check_model_kernels(torch, dev) -> dict:
         sdpa,
         lambda q, k, v, n, _: 2 * q.nbytes + 2 * q.shape[0] * n * k.shape[2]
         * k.shape[3] * k.element_size(),
-        tol, 0, faults)
+        tol, 0, faults, also=(LM_CALL,))
     del cases, head_major
     torch.cuda.empty_cache()
     return results
@@ -531,7 +549,7 @@ def lm_path(torch, np, dev, counters, cfg=None) -> dict:
     the kernel beside it."""
     from repro_torch.configs import get_arch
     from repro_torch.device import generator
-    from repro_torch.kernels.flash_decode.ops import split_plan
+    from repro_torch.kernels.flash_decode.ops import blocks_per_sm, split_plan
     from repro_torch.models import attention
     from repro_torch.models.attention import decode_attention
     from repro_torch.models.transformer import (decode_step, init_cache,
@@ -587,7 +605,10 @@ def lm_path(torch, np, dev, counters, cfg=None) -> dict:
                  q[:, None], k, v, n)[:, 0], 0),
              "newest position dropped": (
                  lambda q, k, v, n: kernel_fn(q, k, v, n - 1), cfg.n_layers)}
-    chunk, n_splits = split_plan(b, cfg.n_kv_heads, last + 1, sms)
+    chunk, n_splits = split_plan(
+        b, cfg.n_kv_heads, last + 1, sms,
+        blocks_per_sm(cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+                      cfg.compute_dtype, dev))
     if n_splits > 1:
         steps["last split dropped"] = (lambda q, k, v, n: kernel_fn(
             q, k, v, (n_splits - 1) * chunk), cfg.n_layers)

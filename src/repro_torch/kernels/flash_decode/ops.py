@@ -11,7 +11,6 @@ from .. import build
 from .ref import flash_decode_ref
 
 TILE = 64               # cache positions per shared-memory tile (the .cu's kTile)
-BLOCKS_PER_SM = 4       # how deep the split fills the card
 MAX_D, MAX_ROWS_X_D = 256, 1024
 
 
@@ -23,15 +22,59 @@ def _kernel():
                               i, i, i, i, i, ctypes.c_float, p, p, p, p, p)
 
 
-def split_plan(b: int, hkv: int, cache_len: int, sms: int
+@functools.cache
+def _blocks_per_sm(bf16: int, n_rep: int, d: int, index: int) -> int:
+    lib = build.library("flash_decode")
+    fn = build.declare(lib, "flash_decode_blocks_per_sm", ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int))
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = fn(bf16, n_rep, d, ctypes.byref(out))
+    build.check(lib, err, "flash_decode occupancy")
+    return out.value
+
+
+def blocks_per_sm(n_rep: int, d: int, dtype: torch.dtype,
+                  device: torch.device) -> int:
+    """Split blocks that one SM of ``device`` holds at once for (n_rep, D)
+    in ``dtype``, as the CUDA runtime computes it (the bf16 kernel's
+    shared-memory ring sets it: 2 at D = 128, 1 at D = 256)."""
+    device = torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _blocks_per_sm(int(dtype == torch.bfloat16), n_rep, d, index)
+
+
+def split_plan(b: int, hkv: int, cache_len: int, sms: int, per_sm: int
                ) -> tuple[int, int]:
     """(chunk, n_splits): positions [0, cache_len) cut into n_splits
-    non-empty ranges of ``chunk`` positions (a multiple of the tile), enough
-    that B * Hkv * n_splits blocks fill ``sms`` SMs BLOCKS_PER_SM deep."""
-    want = max(1, min(-(-BLOCKS_PER_SM * sms // (b * hkv)),
-                      -(-cache_len // TILE)))
-    chunk = -(-(-(-cache_len // want)) // TILE) * TILE
-    return chunk, -(-cache_len // chunk)
+    non-empty ranges of ``chunk`` positions (a multiple of the tile).  One
+    wave is ``sms * per_sm`` blocks; the B * Hkv * n_splits blocks fill at
+    least 90% of a wave, and their last wave at least 90% (the fewest
+    splits that do); where the cache has too few tiles for that, they come
+    as close as they can."""
+    tiles = -(-cache_len // TILE)
+    wave, rows = sms * max(1, per_sm), b * hkv
+
+    def plan(want):
+        chunk = -(-(-(-cache_len // want)) // TILE) * TILE
+        return chunk, -(-cache_len // chunk)
+
+    def last_wave(n):
+        return rows * n % wave or wave
+
+    least = -(-9 * wave // (10 * rows))
+    if least >= tiles:
+        return plan(tiles)
+    best = plan(least)
+    for want in range(least, min(tiles, least + wave) + 1):
+        got = plan(want)
+        if 10 * last_wave(got[1]) >= 9 * wave:
+            return got
+        if last_wave(got[1]) > last_wave(best[1]):
+            best = got
+    return best
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -67,7 +110,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
         raise ValueError("flash_decode needs 16-byte-aligned tensors")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    chunk, n_splits = split_plan(b, hkv, cache_len, sms)
+    chunk, n_splits = split_plan(b, hkv, cache_len, sms,
+                                 blocks_per_sm(n_rep, d, q.dtype, q.device))
     f32 = dict(dtype=torch.float32, device=q.device)
     m = torch.empty(b * hq * n_splits, **f32)
     l = torch.empty(b * hq * n_splits, **f32)

@@ -4,21 +4,35 @@ zstandard is optional: containers without it fall back to stdlib zlib
 (same batched-blob protocol, slightly worse ratio).  Blobs are tagged
 with a 1-byte header so the codecs can coexist; zlib-tagged blobs are
 readable everywhere, zstd-tagged blobs need zstandard installed (a
-clear RuntimeError says so).
+clear RuntimeError says so).  A zstd context is not safe to share
+between threads, so each thread (a writer, serving readers) keeps its own.
 """
 from __future__ import annotations
 
+import threading
 import zlib
 
 try:
     import zstandard as zstd
-    _CCTX = zstd.ZstdCompressor(level=3)
-    _DCTX = zstd.ZstdDecompressor()
     HAVE_ZSTD = True
 except ImportError:  # pragma: no cover - depends on container
     zstd = None
-    _CCTX = _DCTX = None
     HAVE_ZSTD = False
+
+_LOCAL = threading.local()
+
+
+def _cctx():
+    if not hasattr(_LOCAL, "cctx"):
+        _LOCAL.cctx = zstd.ZstdCompressor(level=3)
+    return _LOCAL.cctx
+
+
+def _dctx():
+    if not hasattr(_LOCAL, "dctx"):
+        _LOCAL.dctx = zstd.ZstdDecompressor()
+    return _LOCAL.dctx
+
 
 _TAG_ZSTD = b"z"
 _TAG_ZLIB = b"d"
@@ -27,7 +41,7 @@ _TAG_ZLIB = b"d"
 def compress_batch(lines: list[str]) -> bytes:
     raw = "\n".join(lines).encode("utf-8")
     if HAVE_ZSTD:
-        return _TAG_ZSTD + _CCTX.compress(raw)
+        return _TAG_ZSTD + _cctx().compress(raw)
     return _TAG_ZLIB + zlib.compress(raw, 6)
 
 
@@ -39,5 +53,5 @@ def decompress_batch(blob: bytes) -> list[str]:
         if not HAVE_ZSTD:
             raise RuntimeError(
                 "this store was written with zstandard; install it to read")
-        raw = _DCTX.decompress(payload if tag == _TAG_ZSTD else blob)
+        raw = _dctx().decompress(payload if tag == _TAG_ZSTD else blob)
     return raw.decode("utf-8").split("\n")

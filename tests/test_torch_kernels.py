@@ -30,7 +30,8 @@ from repro_torch.kernels.csc_probe.ops import csc_partition_mask
 from repro_torch.kernels.csc_probe.ref import csc_probe_ref
 from repro_torch.kernels.embedding_bag.ops import embedding_bag_sum
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-from repro_torch.kernels.flash_decode.ops import flash_decode, split_plan
+from repro_torch.kernels.flash_decode.ops import (blocks_per_sm, flash_decode,
+                                                  split_plan)
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.retrieval_score.ops import (retrieval_scores,
                                                      retrieval_topk)
@@ -306,6 +307,9 @@ RETRIEVAL_CASES = [(256, 32), (5000, 64), (10000, 256), (1, 256)]
 EBAG_CASES = [(100, 8, 8, 2), (1000, 32, 64, 8), (500, 128, 16, 4),
               (39 * 128, 1, 512, 39)]
 # the tests/test_kernels.py cases (b, s, hq, hkv, d, cache_len)
+# blocks of the bf16 flash_decode kernel that an H100 SM holds at D = 128
+# (its 104,448-byte shared-memory ring), as the CUDA runtime counts them
+H100_BF16_D128_PER_SM = 2
 DECODE_CASES = [(2, 128, 4, 2, 16, 100), (1, 700, 8, 8, 32, 650),
                 (4, 64, 16, 2, 8, 64), (2, 256, 6, 3, 64, 17)]
 
@@ -391,6 +395,38 @@ def test_flash_decode_plain_bf16_matches_pallas_and_jnp(jx):
                                    atol=2 ** -8 * np.abs(want).max())
 
 
+# the edges of the CUDA kernel's ring and fragments, at CPU size: cache_len
+# 1, within one warp's 16 positions, across warps, one 64-position tile,
+# past it, one below the 3-tile ring; n_rep 1, 3, 8 and 16; D 128, 64,
+# 256 and 40 (mma steps padded past D)
+BF16_EDGE_CASES = [(2, 200, 8, 2, 128, clen) for clen in (1, 15, 17, 63, 65, 191)] + [
+    (1, 130, 8, 8, 128, 129), (1, 130, 24, 8, 128, 100),
+    (1, 130, 64, 8, 128, 127), (1, 130, 64, 4, 64, 111),
+    (1, 130, 8, 2, 256, 97), (1, 130, 12, 4, 40, 129)]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,clen", BF16_EDGE_CASES)
+def test_flash_decode_plain_bf16_edges_match_pallas(jx, b, s, hq, hkv, d,
+                                                    clen):
+    """The plain version, which the CUDA cases hold the kernel to at these
+    shapes, against the Pallas kernel and the jnp oracle in bf16, at the
+    tolerance of the bf16 test above."""
+    import ml_dtypes
+    jnp = jx.jnp
+    q, k, v = (a.astype(ml_dtypes.bfloat16)
+               for a in _decode_inputs(b + s + d + clen, b, s, hq, hkv, d))
+    got = flash_decode(*(torch.from_numpy(a.astype(np.float32))
+                         .to(torch.bfloat16) for a in (q, k, v)), clen)
+    got = got.to(torch.float32).numpy()
+    for want in (jx.flash_decode(*map(jnp.asarray, (q, k, v)),
+                                 jnp.int32(clen), block_s=64),
+                 jx.flash_decode_ref(*map(jnp.asarray, (q, k, v)),
+                                     jnp.int32(clen))):
+        want = np.asarray(want).astype(np.float32)
+        np.testing.assert_allclose(got, want, rtol=2 ** -7,
+                                   atol=2 ** -8 * np.abs(want).max())
+
+
 @pytest.mark.parametrize("b,s,clen", [(8, 1056, 1055), (1, 32768, 32768)])
 def test_flash_decode_bf16_tolerance_rejects_planted_faults(b, s, clen):
     """The bf16 tolerance above (and in ``chip_smoke.py``) scales with the
@@ -403,7 +439,7 @@ def test_flash_decode_bf16_tolerance_rejects_planted_faults(b, s, clen):
                for a in _decode_inputs(11, b, s, hq, hkv, d))
     want = flash_decode(q, k, v, clen).to(torch.float32)
     tol = dict(rtol=2 ** -7, atol=2 ** -8 * float(want.abs().max()))
-    chunk, n_splits = split_plan(8, hkv, clen, 132)
+    chunk, n_splits = split_plan(8, hkv, clen, 132, H100_BF16_D128_PER_SM)
     assert n_splits > 1
     for n in ((n_splits - 1) * chunk, clen - 1):
         with pytest.raises(AssertionError):
@@ -412,11 +448,27 @@ def test_flash_decode_bf16_tolerance_rejects_planted_faults(b, s, clen):
 
 
 def test_flash_decode_split_plan_covers_the_cache():
-    for b, hkv, clen in ((8, 8, 32768), (8, 8, 30001), (1, 1, 1),
-                         (8, 8, 1056), (1, 8, 700), (128, 8, 5)):
-        chunk, n = split_plan(b, hkv, clen, 132)
-        assert chunk % 64 == 0 and (n - 1) * chunk < clen <= n * chunk
-    assert split_plan(8, 8, 32768, 132)[1] * 64 >= 4 * 132
+    """Every plan covers [0, cache_len) with non-empty splits of whole
+    tiles; at the main path's shape (B 8, Hkv 8, 32,768 positions, D 128
+    bf16: 2 blocks per SM, as test_cuda_flash_decode_blocks_per_sm checks)
+    and at the LM path's own call the blocks fill their last wave of an
+    H100's 132 SMs at least 90%, and long caches at up to 4 blocks per SM
+    do too (at 12 a whole tile per split can be too coarse for that)."""
+    for per_sm in (1, 2, 3, 4, 12):
+        for b, hkv, clen in ((8, 8, 32768), (8, 8, 30001), (1, 1, 1),
+                             (8, 8, 1056), (1, 8, 700), (128, 8, 5),
+                             (4, 8, 1037), (1, 8, 32768), (128, 8, 32768),
+                             (3, 5, 100_000)):
+            chunk, n = split_plan(b, hkv, clen, 132, per_sm)
+            assert chunk % 64 == 0 and (n - 1) * chunk < clen <= n * chunk
+            if clen >= 32768 and per_sm <= 4:
+                wave = 132 * per_sm
+                last = b * hkv * n % wave
+                assert b * hkv * n >= 0.9 * wave
+                assert last == 0 or last >= 0.9 * wave
+    for clen in (32768, 1055):
+        chunk, n = split_plan(8, 8, clen, 132, H100_BF16_D128_PER_SM)
+        assert 0.9 * 264 <= 64 * n <= 264
 
 
 def test_wrappers_reject_bad_inputs():
@@ -599,9 +651,28 @@ def test_cuda_embedding_bag_matches_plain(cuda, v, d, b, bag):
 
 
 @pytest.mark.requires_cuda
+def test_cuda_flash_decode_blocks_per_sm(cuda):
+    """The split plan's blocks per SM come from the runtime's occupancy of
+    the kernel that runs: the bf16 ring sets it at D = 128 and 256."""
+    assert blocks_per_sm(4, 128, torch.bfloat16, cuda) == H100_BF16_D128_PER_SM
+    assert blocks_per_sm(4, 256, torch.bfloat16, cuda) == 1
+    for n_rep, d in ((1, 8), (16, 64), (128, 8), (3, 40)):
+        assert blocks_per_sm(n_rep, d, torch.bfloat16, cuda) >= 1
+        assert blocks_per_sm(n_rep, d, torch.float32, cuda) >= 1
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("b,s,hq,hkv,d,clen", DECODE_CASES + [
     (8, 4096, 32, 8, 128, 4096), (8, 4096, 32, 8, 128, 3001),
-    (2, 1000, 4, 4, 128, 1), (1, 333, 4, 1, 256, 300)])
+    (2, 1000, 4, 4, 128, 1), (1, 333, 4, 1, 256, 300)] + [
+    # one split per (row, kv head) at B * Hkv = 256: cache_len 1, within
+    # one warp's 16 positions, across warps, one tile, past it, and one
+    # below the bf16 ring's 3 tiles
+    (32, 200, 32, 8, 128, clen) for clen in (1, 15, 17, 63, 65, 191)] + [
+    (2, 520, 8, 8, 128, 517), (2, 520, 24, 8, 128, 519),   # n_rep 1, 3
+    (2, 520, 64, 8, 128, 500), (2, 520, 64, 4, 64, 511),   # n_rep 8, 16
+    (2, 520, 8, 2, 64, 449), (2, 520, 8, 2, 256, 449),     # D 64, 256
+    (8, 2000, 24, 8, 40, 1999)])                           # D 40: padded steps
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_decode_matches_plain(cuda, b, s, hq, hkv, d, clen, dtype):
     """f32 at 2e-5; bf16 as the CPU bf16 test states it: rtol 2^-7 for the

@@ -181,3 +181,39 @@ def test_default_mode_is_batch_as_in_reference():
     st.finish()
     assert len(st.segments) == 1 and st.sketch is st.segments[0]
     assert st.query_term("abc3").matches == list(range(3, 100, 7))
+
+
+def test_batch_codec_is_safe_across_threads(small_dataset):
+    """Serving readers decompress batches while the writer compresses new
+    ones: concurrent calls from several threads give back every batch
+    exactly, in the blob format the reference reads."""
+    import threading
+
+    from repro.logstore.compress import decompress_batch as ref_decompress
+    from repro_torch.logstore.compress import compress_batch, decompress_batch
+
+    lines = small_dataset.lines
+    batches = [lines[i:i + 16] for i in range(0, min(len(lines), 1024), 16)]
+    blobs = [compress_batch(b) for b in batches]
+    assert [ref_decompress(blob) for blob in blobs] == batches
+    errors: list = []
+
+    def work(k):
+        try:
+            for _ in range(10):
+                for b, blob in zip(batches, blobs):
+                    if (decompress_batch(blob) != b
+                            or decompress_batch(compress_batch(b)) != b):
+                        errors.append(("mismatch", k))
+                        return
+        except Exception as e:   # pragma: no cover - failure path
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(k,), daemon=True)
+               for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive(), "codec thread hung"
+    assert not errors, errors[:3]
