@@ -5,12 +5,14 @@
 
 Phases (any failure raises, so the exit code is not 0):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+  2. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
      (nvcc, one process per source, all at once);
   3. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at the edges (ragged W, Q not a power of two,
      empty / full / over-max_hits rows, absent keys, fallback keys, token
-     rows of length 0, L and past L), bit for bit, and time both;
+     rows of length 0, L and past L), bit for bit, and time both
+     (``token_hash`` also at the median term matrix that phase 4's ingest
+     launched);
   4. the segmented path: a 1M-line synthetic log (1000 sources) ingested
      into ``DynaWarpStore(mode="segmented")`` at the paper's defaults on the
      GPU (its term matrices through ``token_hash``), then waves of term and
@@ -23,14 +25,16 @@ Phases (any failure raises, so the exit code is not 0):
      ``csc_probe`` call and one by one; no false negatives, scan-equal
      matches, one upload; then ``csc_probe`` against its plain version on
      this store's sketch and at the edges (p = 16, p = 40, j = 2, m = 64,
-     anchors that wrap at m);
+     anchors that wrap at m), timed at the wave and at one per-query call;
   6. the log_search path (``examples/log_search.py``: 20,000 lines, 32
      sources, three planted Log4Shell lines) over every store of
      ``ALL_STORES`` on the GPU, each equal to its CPU run, batch-mode and
      segmented DynaWarp equal;
   7. hold the model-serving kernels (``retrieval_score``, ``embedding_bag``,
      ``flash_decode``) against their plain versions on the card, at their
-     paths' shapes and at the edges, within the tolerance stated at
+     paths' shapes and at the edges (for ``retrieval_score`` every register
+     step of the query, MAX_D, scalar loads, an unaligned corpus), within
+     the tolerance stated at
      ``check_model_kernels``, and time each beside one PyTorch library call
      that computes the same function (``flash_decode`` also at the LM
      path's own call), with each time's share of its bytes bound;
@@ -70,7 +74,7 @@ ROOT = Path(__file__).resolve().parent
 N_LINES, N_SOURCES, SEED, BATCH_LINES = 1_000_000, 1000, 3, 512
 N_TERMS, N_NEEDLES = 4096, 1024      # term wave: half present, half absent
 N_SCAN_SAMPLE = 8
-N_TOKEN_ROWS = 32_768                # about one flush batch's term matrix
+N_TOKEN_ROWS = 32_768                # a term matrix above any flush batch's
 # examples/log_search.py: the Log4Shell hunt over every store
 HUNT_LINES, HUNT_SOURCES, HUNT_BATCH = 20_000, 32, 128
 HUNT_POS = (1234, 9876, 18765)
@@ -90,8 +94,14 @@ N_RETRIEVAL, TOP_K, N_SCORE = 64, 100, 32
 # not (phase 7 holds the kernel at the path's own shape for that)
 LOGIT_TOL = 2 ** -3
 # phase 7 shapes, the main one first: (C, D) two-tower corpus, C off any
-# block, C = 1, a D that takes the scalar loads
-RETRIEVAL_SHAPES = ((1_048_576, 256), (1_000_003, 256), (1, 256), (4097, 30))
+# block, C = 1, a D that takes the scalar loads; then the kernel's edges: D
+# on both sides of the query's register limit (512), at a register step
+# (132) and at MAX_D, C under one 8-row block, D = 1, a scalar D past the
+# scalar loads' register limit (128) (and phase 7 adds a corpus view off
+# 16-byte alignment)
+RETRIEVAL_SHAPES = ((1_048_576, 256), (1_000_003, 256), (1, 256), (4097, 30),
+                    (300, 4), (300, 132), (300, 512), (300, 516),
+                    (37, 12_288), (7, 256), (33, 1), (1000, 129))
 # (V, D, B, BAG, fields): xDeepFM's wide term (D = 1, one id in each of 39
 # fields of 1M rows), then D = 8, 64, 128
 EBAG_SHAPES = ((39_000_000, 1, 512, 39, 39), (100_000, 8, 512, 39, 1),
@@ -267,8 +277,6 @@ def check_kernels(torch, np, dev) -> dict:
                                                     bitset_reduce_ref)
     from repro_torch.kernels.sketch_probe.ops import mphf_probe_arrs
     from repro_torch.kernels.sketch_probe.ref import sketch_probe_ref
-    from repro_torch.kernels.token_hash.ops import token_fingerprints
-    from repro_torch.kernels.token_hash.ref import token_hash_ref
     from repro_torch.logstore.datasets import generate_dataset
 
     run = functools.partial(hold, torch)
@@ -350,15 +358,22 @@ def check_kernels(torch, np, dev) -> dict:
     unaligned = buf[4:].view(999, 64)
     unaligned.copy_(torch.from_numpy(t).to(dev))
     th.append((unaligned, torch.from_numpy(ln).to(dev), "(999, 64) unaligned"))
-    results["token_hash"] = run(
-        "token_hash", th,
+    results["token_hash"] = hold_token_hash(torch, th)
+    return results
+
+
+def hold_token_hash(torch, cases) -> dict:
+    """``hold`` for token_hash, timed at ``cases[0]``."""
+    from repro_torch.kernels.token_hash.ops import token_fingerprints
+    from repro_torch.kernels.token_hash.ref import token_hash_ref
+    return hold(
+        torch, "token_hash", cases,
         lambda t, ln, _: (token_fingerprints(t, ln),),
         lambda t, ln, _: (token_hash_ref(t, ln),),
         # the bytes the hash needs: each row's first min(len, L) bytes, the
         # lengths, the fingerprints
         lambda t, ln, _: (int(ln.clamp(0, t.shape[1]).sum()) + 8 * t.shape[0]),
         0)
-    return results
 
 
 # ---------------------------------------------------------------- phase 7
@@ -428,8 +443,8 @@ def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
 
 def check_model_kernels(torch, dev) -> dict:
     """The model-serving kernels against their plain versions on the card.
-    Tolerances: f32 results at rtol 2e-5 (atol 1e-4 for the 256-long
-    corpus dots, 2e-5 else): the card sums in another order.  bf16
+    Tolerances: f32 results at rtol 2e-5 (atol 1e-4 for the corpus dots,
+    2e-5 else): the card sums in another order.  bf16
     attention at rtol 2^-7 (one bf16 step of the output) plus atol 2^-8 *
     max|want| (the plain version rounds its probabilities to bf16, the
     kernel keeps them in f32; scaled by the output, which at 32k positions
@@ -456,9 +471,19 @@ def check_model_kernels(torch, dev) -> dict:
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
+    def scores_input(c, d):
+        # past D 4096, integers in [-4, 4]: every order of the sum is exact
+        # there, where normal values would differ by ~1e-4 between orders
+        if d <= 4096:
+            return randn(c, d), randn(d)
+        return tuple(torch.randint(-4, 5, size, generator=gen, device=dev)
+                     .float() for size in ((c, d), (d,)))
+
     results = {}
-    cases = [(randn(c, d), randn(d), f"C={c} D={d}")
-             for c, d in RETRIEVAL_SHAPES]
+    cases = [(*scores_input(c, d), f"C={c} D={d}") for c, d in RETRIEVAL_SHAPES]
+    (c, d), flat = cases[0][0].shape, cases[0][0].view(-1)
+    cases.append((flat[1:1 + (c - 1) * d].view(c - 1, d), cases[0][1],
+                  f"C={c - 1} D={d} unaligned"))
     results["retrieval_score"] = hold_close(
         torch, "retrieval_score", cases,
         lambda x, q, _: retrieval_scores(x, q),
@@ -861,6 +886,7 @@ def recsys_path(torch, np, dev, counters, two_tower_cfg=None,
 
 # ---------------------------------------------------------------- phase 4
 def main_path(torch, np, dev, counters) -> dict:
+    from repro_torch.core import batch_builder
     from repro_torch.core.query_engine import _as_fp
     from repro_torch.core.tokenizer import (contains_query_tokens,
                                             term_query_tokens)
@@ -883,13 +909,28 @@ def main_path(torch, np, dev, counters) -> dict:
     print(f"dataset: {ds.n_lines} lines, {N_SOURCES} sources, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # the (N, L) term matrix of every token_hash launch of the ingest, and
+    # every 64th matrix itself: phase 3's kernel is also timed at the
+    # median launch
+    inner, launched, kept = batch_builder.token_matrix_fingerprints, [], []
+
+    def recording(mat, lengths, device):
+        if len(launched) % 64 == 0:
+            kept.append((mat.copy(), lengths.copy()))
+        launched.append(mat.shape)
+        return inner(mat, lengths, device)
+
     reset(counters)
     # ----------------------------------------------- the main path proper
     t0 = time.perf_counter()
     store = DynaWarpStore(batch_lines=BATCH_LINES, mode="segmented",
                           device=dev)
-    store.ingest(ds.lines)
-    store.finish()
+    batch_builder.token_matrix_fingerprints = recording
+    try:
+        store.ingest(ds.lines)
+        store.finish()
+    finally:
+        batch_builder.token_matrix_fingerprints = inner
     ingest_s = time.perf_counter() - t0
     # the million dataset lines are this script's, not the store's: move
     # them out of the cyclic collector's view so its full passes do not
@@ -986,9 +1027,19 @@ def main_path(torch, np, dev, counters) -> dict:
           f"({sum(len(truth[t]) for t in sample[:2])} "
           f"matches in the first two), {time.perf_counter() - t0:.1f} s",
           flush=True)
+    rows = sorted(n for n, _ in launched)
+    median = rows[len(rows) // 2]
+    mat, lens = min(kept, key=lambda k: abs(k[0].shape[0] - median))
+    token_launch = dict(launches=len(launched), rows_median=median,
+                        rows_min=rows[0], rows_max=rows[-1],
+                        widths=sorted({l for _, l in launched}),
+                        case=(mat, lens))
+    print(f"token_hash launches of the ingest: {len(launched)}, rows "
+          f"{rows[0]}..{rows[-1]}, median {median}, widths "
+          f"{token_launch['widths']}", flush=True)
     return dict(launches=launches, waves=waves, ingest_s=ingest_s,
                 ds=ds, terms=terms, needles=needles, needle_toks=needle_toks,
-                store=store, scan=scan, truth=truth)
+                store=store, scan=scan, truth=truth, token_launch=token_launch)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1012,6 +1063,12 @@ def csc_path(torch, np, dev, counters, seg) -> dict:
     lens = np.asarray([len(t) for t in query_toks])
     wave_fps = np.fromiter((token_fingerprint(x) for toks in query_toks
                             for x in toks), np.uint32, int(lens.sum()))
+    # one per-query call as candidates_term launches it: the term of the
+    # median token count, with its n-grams
+    median = int(np.sort(lens[:len(terms)])[len(terms) // 2])
+    one = query_toks[int(np.flatnonzero(lens[:len(terms)] == median)[0])]
+    one_fps = np.fromiter((token_fingerprint(x) for x in one), np.uint32,
+                          len(one))
 
     reset(counters)
     t0 = time.perf_counter()
@@ -1109,12 +1166,14 @@ def csc_path(torch, np, dev, counters, seg) -> dict:
                 per_query_profiled_ms=sample_busy[0],
                 per_query_busy_ms=sample_busy[1],
                 per_query_s=per_query_s, per_query_qps=n_q / per_query_s,
-                finding=finding, sketch=csc.sketch, fps=fps_dev)
+                finding=finding, sketch=csc.sketch, fps=fps_dev,
+                one_fps=torch.from_numpy(one_fps.view(np.int32)).to(dev))
 
 
-def check_csc(torch, np, dev, sketch, fps) -> dict:
+def check_csc(torch, np, dev, sketch, fps, one_fps) -> dict:
     """csc_probe against its plain version on the CSC path's own sketch
-    and wave (the main shape) and on small sketches at the edges."""
+    and wave (the main shape) and on small sketches at the edges; then
+    timed at one per-query call (``one_fps``) on that sketch."""
     from repro_torch.baselines.csc import CSCSketch, _seed
     from repro_torch.core.hashing import np_seeded_hash32
     from repro_torch.kernels.csc_probe.ops import csc_partition_mask
@@ -1148,10 +1207,16 @@ def check_csc(torch, np, dev, sketch, fps) -> dict:
         words = sk.j * sk.k * ((sk.p + 31) // 32 + 1)
         return f.numel() * (4 + 4 * words + sk.p)
 
-    return hold(torch, "csc_probe", cases,
-                lambda sk, f, _: (csc_partition_mask(sk, f),),
-                lambda sk, f, _: (sk.partition_mask_torch(f),),
-                bytes_of, 0)
+    def run(cases):
+        return hold(torch, "csc_probe", cases,
+                    lambda sk, f, _: (csc_partition_mask(sk, f),),
+                    lambda sk, f, _: (sk.partition_mask_torch(f),),
+                    bytes_of, 0)
+
+    out = run(cases)
+    out["at_launch"] = run([(sketch, one_fps, f"one per-query call, "
+                             f"Q={one_fps.numel()}")])
+    return out
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1284,6 +1349,11 @@ def main() -> int:
     paths = {}
     seg = main_path(torch, np, dev, counters)
     seg_summary = dict(ingest_s=seg["ingest_s"], waves=seg["waves"])
+    launch = seg["token_launch"]
+    mat, lens = launch.pop("case")
+    kernels["token_hash"]["at_launch"] = dict(launch, **hold_token_hash(
+        torch, [(torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev),
+                 f"median ingest launch {mat.shape}")]))
     paths["segmented"] = seg["launches"]
     for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
                  "token_hash"):
@@ -1295,7 +1365,7 @@ def main() -> int:
         require(csc["launches"][name] > 0,
                 f"the csc path never launched {name}")
     kernels["csc_probe"] = check_csc(torch, np, dev, csc.pop("sketch"),
-                                     csc.pop("fps"))
+                                     csc.pop("fps"), csc.pop("one_fps"))
     hunt = log_search_path(torch, np, dev, counters)
     paths["log_search"] = hunt["launches"]
     for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
@@ -1342,7 +1412,8 @@ def main() -> int:
                  max_abs_err=k["max_abs_err"], ms=k["ms"],
                  plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
                  bound_by="bytes", library_ms=k.get("library_ms"),
-                 shape=k["shape"])
+                 shape=k["shape"],
+                 **({"at_launch": k["at_launch"]} if "at_launch" in k else {}))
             for name, k in kernels.items()]
     total_s = time.perf_counter() - t_start
     print(json.dumps(dict(card=card, total_s=total_s,

@@ -231,6 +231,11 @@ class QueryEngine:
         """Bytes of the segments' buffers staged on the device."""
         return sum(s.device_bytes() for s in self.segments)
 
+    def index_bytes(self, **kw) -> int:
+        """Bytes of the segments' sketches, as ``ImmutableSketch.size_bytes``
+        counts them (``kw`` goes to it)."""
+        return sum(s.size_bytes(**kw) for s in self.segments)
+
     # ----------------------------------------------------- host scalar path
     def host_query(self, tokens, *, op: str = "and") -> np.ndarray:
         """Scalar host path with identical fan-out semantics (per-token

@@ -20,10 +20,10 @@ from .csc_probe.ops import csc_partition_mask
 from .embedding_bag.ops import embedding_bag_sum
 from .flash_decode.ops import flash_decode
 from .retrieval_score.ops import retrieval_scores, retrieval_topk
-from .sketch_probe.ops import mphf_probe_arrs
+from .sketch_probe.ops import mphf_probe, mphf_probe_arrs
 from .token_hash.ops import token_fingerprints
 
 __all__ = ["bitmap_extract", "bitset_reduce", "bitset_reduce_batch",
            "csc_partition_mask", "embedding_bag_sum", "flash_decode",
-           "mphf_probe_arrs", "retrieval_scores", "retrieval_topk",
-           "token_fingerprints"]
+           "mphf_probe", "mphf_probe_arrs", "retrieval_scores",
+           "retrieval_topk", "token_fingerprints"]

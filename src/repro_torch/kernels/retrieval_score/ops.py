@@ -18,7 +18,7 @@ def _kernel():
     lib = build.library("retrieval_score")
     p, i = ctypes.c_void_p, ctypes.c_int
     return lib, build.declare(lib, "retrieval_score_launch",
-                              p, p, i, i, i, i, p, p)
+                              p, p, i, i, i, p, p)
 
 
 def retrieval_scores(corpus: torch.Tensor, query: torch.Tensor
@@ -43,12 +43,11 @@ def retrieval_scores(corpus: torch.Tensor, query: torch.Tensor
     out = torch.empty(c, dtype=torch.float32, device=corpus.device)
     if c:
         query = query.contiguous()
-        vec = int(d % 4 == 0 and corpus.data_ptr() % 16 == 0)
-        sms = torch.cuda.get_device_properties(corpus.device) \
-            .multi_processor_count
+        vec = int(d % 4 == 0 and corpus.data_ptr() % 16 == 0
+                  and query.data_ptr() % 16 == 0)
         lib, fn = _kernel()
         with torch.cuda.device(corpus.device):
-            err = fn(corpus.data_ptr(), query.data_ptr(), c, d, vec, 16 * sms,
+            err = fn(corpus.data_ptr(), query.data_ptr(), c, d, vec,
                      out.data_ptr(), build.stream_of(corpus))
         build.check(lib, err, "retrieval_score")
         retrieval_scores.launch_count += 1

@@ -61,4 +61,15 @@ def mphf_probe_arrs(fps: torch.Tensor, arrs: dict
     return idx, absent
 
 
+def mphf_probe(mphf, fps: torch.Tensor, *, arrs: dict | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched probe of a built :class:`~repro_torch.core.mphf.MPHF`:
+    ``mphf_probe_arrs`` over ``arrs``, an ``mphf.device_arrays()`` dict a
+    caller already holds (the query engine's per-segment cache), or, when
+    it is None, over the MPHF's arrays uploaded to ``fps``'s device."""
+    if arrs is None:
+        arrs = mphf.device_arrays(fps.device)
+    return mphf_probe_arrs(fps, arrs)
+
+
 mphf_probe_arrs.launch_count = 0

@@ -285,7 +285,13 @@ class DynaWarpStore(LogStoreBase):
     ``device_query=False`` keeps the paper's sequential host loop
     (Alg. 3, ``query_and``) on the monolithic sketch; segmented mode
     always uses the engine.  ``device=None`` means the GPU and raises
-    where there is none; pass ``device="cpu"`` to run on the CPU."""
+    where there is none; pass ``device="cpu"`` to run on the CPU.
+
+    The reference's durability, sharding and background-compaction
+    keywords are accepted at their defaults; any other value raises
+    ``NotImplementedError`` until its slice is ported.
+    ``extract_on_device`` may be None or True: extraction always runs on
+    the store's device."""
     name = "dynawarp"
 
     def __init__(self, *, batch_lines: int = 512, mode: str = "batch",
@@ -294,14 +300,27 @@ class DynaWarpStore(LogStoreBase):
                  plane_budget_bytes: int = 64 << 20,
                  columnar: bool = True, compact_fanout: int = 4,
                  auto_compact: bool = True, ingest_cache_size: int = 2048,
-                 device=None, path: str | None = None,
-                 shard_axes: tuple | None = None):
+                 device=None, shard_axes: tuple | None = None,
+                 extract_on_device: bool | None = None,
+                 path: str | None = None, mmap: bool = True,
+                 fsync: bool = False, background_compact: bool = False,
+                 publish_per_spill: bool = True, compact_retry: int = 3,
+                 compact_backoff_s: float = 0.05):
         if mode not in ("batch", "online", "segmented"):
             raise ValueError(f"mode={mode!r}")
-        if path is not None:
-            raise NotImplementedError(f"path=: {_NOT_PORTED}")
-        if shard_axes is not None:
-            raise NotImplementedError(f"shard_axes=: {_NOT_PORTED}")
+        if extract_on_device not in (None, True):
+            raise NotImplementedError(
+                f"extract_on_device={extract_on_device!r}: {_NOT_PORTED}")
+        for kw, value, default in (
+                ("path", path, None), ("shard_axes", shard_axes, None),
+                ("mmap", mmap, True), ("fsync", fsync, False),
+                ("background_compact", background_compact, False),
+                ("publish_per_spill", publish_per_spill, True),
+                ("compact_retry", compact_retry, 3),
+                ("compact_backoff_s", compact_backoff_s, 0.05)):
+            if value != default:
+                raise NotImplementedError(
+                    f"{kw}={value!r}: {_NOT_PORTED}")
         super().__init__(batch_lines=batch_lines,
                          ingest_cache_size=ingest_cache_size)
         self.device = resolve_device(device)

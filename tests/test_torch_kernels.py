@@ -36,7 +36,7 @@ from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.retrieval_score.ops import (retrieval_scores,
                                                      retrieval_topk)
 from repro_torch.kernels.retrieval_score.ref import retrieval_score_ref
-from repro_torch.kernels.sketch_probe.ops import mphf_probe_arrs
+from repro_torch.kernels.sketch_probe.ops import mphf_probe, mphf_probe_arrs
 from repro_torch.kernels.sketch_probe.ref import sketch_probe_ref
 from repro_torch.kernels.token_hash.ops import token_fingerprints
 from repro_torch.kernels.token_hash.ref import token_hash_ref
@@ -63,7 +63,7 @@ def jx():
                                               bitset_reduce_batch)
     from repro.kernels.bitset_ops.ref import bitset_reduce_batch_ref
     from repro.kernels.csc_probe.ops import csc_partition_mask
-    from repro.kernels.sketch_probe.ops import mphf_probe_arrs
+    from repro.kernels.sketch_probe.ops import mphf_probe, mphf_probe_arrs
     from repro.kernels.token_hash.ops import token_fingerprints
     from repro.kernels.token_hash.ref import token_hash_ref
     from repro.baselines.csc import CSCSketch
@@ -75,7 +75,8 @@ def jx():
                                                    retrieval_topk)
     from repro.kernels.retrieval_score.ref import retrieval_score_ref
     return SimpleNamespace(
-        jnp=jnp, mphf=mphf, probe=mphf_probe_arrs, reduce=bitset_reduce,
+        jnp=jnp, mphf=mphf, probe=mphf_probe_arrs, mphf_probe=mphf_probe,
+        reduce=bitset_reduce,
         reduce_batch=bitset_reduce_batch,
         reduce_batch_ref=bitset_reduce_batch_ref, extract=bitmap_extract,
         extract_ref=bitmap_extract_ref, token_hash=token_fingerprints,
@@ -250,6 +251,21 @@ def test_sketch_probe_plain_matches_pallas_and_jnp(jx, seed, n_keys,
 BITSET_SHAPES = [(8, 1, 62), (5, 8, 62), (3, 3, 1), (1, 8, 33), (12, 2, 64)]
 
 
+@pytest.mark.parametrize("seed,n_keys,max_levels", MPHF_CASES)
+def test_mphf_probe_matches_reference(jx, seed, n_keys, max_levels):
+    """``kernels.mphf_probe`` (the MPHF's own arrays, or ``arrs`` a caller
+    holds) gives the reference's ``kernels.mphf_probe``, bit for bit."""
+    keys, fps = _mphf_case(seed, n_keys, max_levels)
+    m = port_mphf.build_mphf(keys, max_levels=max_levels)
+    m_ref = jx.mphf.build_mphf(keys, max_levels=max_levels)
+    j_idx, j_abs = jx.mphf_probe(m_ref, jx.jnp.asarray(fps))
+    for arrs in (None, m.device_arrays("cpu")):
+        idx, absent = mphf_probe(m, _i32(fps), arrs=arrs)
+        assert idx.dtype == torch.int32 and absent.dtype == torch.bool
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(j_idx))
+        np.testing.assert_array_equal(absent.numpy(), np.asarray(j_abs))
+
+
 @pytest.mark.parametrize("q,t,w", BITSET_SHAPES)
 @pytest.mark.parametrize("op", ["and", "or"])
 def test_bitset_reduce_batch_plain_matches_pallas_and_jnp(jx, q, t, w, op):
@@ -303,6 +319,44 @@ def test_bitmap_extract_plain_matches_pallas_and_jnp(jx, q, w, max_hits):
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 # the tests/test_kernels.py cases, plus C = 1
 RETRIEVAL_CASES = [(256, 32), (5000, 64), (10000, 256), (1, 256)]
+# (C, D, corpus offset, query offset) at the CUDA kernel's edges: D at each
+# boundary of the query's register steps (a lane holds D / 128 float4, up
+# to D 512; past it the query is in shared memory) and at MAX_D; D not a
+# multiple of 4 on both sides of the scalar loads' register limit (128),
+# D = 1; C = 1, C off the 2-row warp turn and the 8-row block; corpus or
+# query views 4 bytes off 16-byte alignment (scalar loads)
+RETRIEVAL_EDGES = [(300, 4, 0, 0), (300, 128, 0, 0), (300, 132, 0, 0),
+                   (300, 384, 0, 0), (300, 512, 0, 0), (300, 516, 0, 0),
+                   (37, 12_288, 0, 0), (1, 12_288, 0, 0), (1, 4, 0, 0),
+                   (7, 256, 0, 0), (33, 256, 0, 0), (1000, 129, 0, 0),
+                   (33, 1, 0, 0), (4097, 256, 1, 1), (1000, 256, 0, 1)]
+
+
+def _retrieval_inputs(c, d, x_off, q_off, device="cpu"):
+    """Seeded (C, D) corpus and (D,) query, each a contiguous view that
+    starts ``x_off`` / ``q_off`` floats into its buffer.  Past D 4096 the
+    values are integers in [-4, 4]: every partial sum is then an integer
+    below 2^24, so each summation order gives the same f32 result (normal
+    values at D 12,288 differ by up to ~1e-4 between two orders, beyond
+    the f32 tolerances, which are set for dots of a few hundred)."""
+    def draw(seed, n):
+        if d <= 4096:
+            return _normal(seed, n)
+        return np.random.default_rng(seed).integers(-4, 5, n) \
+            .astype(np.float32)
+
+    x = torch.zeros(c * d + x_off, device=device)
+    x[x_off:] = torch.from_numpy(draw(c + d, c * d))
+    q = torch.zeros(d + q_off, device=device)
+    q[q_off:] = torch.from_numpy(draw(c + d + 1, d))
+    return x[x_off:].view(c, d), q[q_off:]
+
+
+def _retrieval_params(plain, edges=RETRIEVAL_EDGES):
+    """(C, D) cases under their ids "C-D" with aligned views, then the
+    edges under "C-D-corpus offset-query offset"."""
+    return ([pytest.param(c, d, 0, 0, id=f"{c}-{d}") for c, d in plain]
+            + list(edges))
 # the tests/test_kernels.py cases, plus xDeepFM's wide term: D = 1, BAG = 39
 EBAG_CASES = [(100, 8, 8, 2), (1000, 32, 64, 8), (500, 128, 16, 4),
               (39 * 128, 1, 512, 39)]
@@ -323,11 +377,12 @@ def _decode_inputs(seed, b, s, hq, hkv, d):
             _normal(seed + 2, b, s, hkv, d))
 
 
-@pytest.mark.parametrize("c,d", RETRIEVAL_CASES)
-def test_retrieval_score_plain_matches_pallas_and_jnp(jx, c, d):
+@pytest.mark.parametrize("c,d,x_off,q_off", _retrieval_params(RETRIEVAL_CASES))
+def test_retrieval_score_plain_matches_pallas_and_jnp(jx, c, d, x_off, q_off):
     jnp = jx.jnp
-    corpus, q = _normal(c + d, c, d), _normal(c + d + 1, d)
-    got = retrieval_scores(torch.from_numpy(corpus), torch.from_numpy(q))
+    x, q_t = _retrieval_inputs(c, d, x_off, q_off)
+    corpus, q = x.numpy(), q_t.numpy()
+    got = retrieval_scores(x, q_t)
     assert got.dtype == torch.float32 and got.shape == (c,)
     np.testing.assert_allclose(got.numpy(), np.asarray(jx.scores(
         jnp.asarray(corpus), jnp.asarray(q))), **F32_TOL)
@@ -542,6 +597,19 @@ def test_cuda_sketch_probe_matches_plain(cuda, seed, n_keys, max_levels):
 
 
 @pytest.mark.requires_cuda
+def test_cuda_mphf_probe_uploads_and_launches(cuda):
+    keys, fps = _mphf_case(*MPHF_CASES[0])
+    m = port_mphf.build_mphf(keys, max_levels=MPHF_CASES[0][2])
+    before = mphf_probe_arrs.launch_count
+    idx, absent = mphf_probe(m, _i32(fps).to(cuda))
+    torch.cuda.synchronize()
+    assert mphf_probe_arrs.launch_count == before + 1
+    assert idx.device.type == "cuda"
+    r_idx, r_abs = sketch_probe_ref(_i32(fps), m.device_arrays("cpu"))
+    assert torch.equal(idx.cpu(), r_idx) and torch.equal(absent.cpu(), r_abs)
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("q,t,w", BITSET_SHAPES + [(4096, 8, 62)])
 @pytest.mark.parametrize("op", ["and", "or"])
 def test_cuda_bitset_reduce_batch_matches_plain(cuda, q, t, w, op):
@@ -621,12 +689,11 @@ def test_cuda_line_fingerprinter_matches_cpu(cuda):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("c,d", RETRIEVAL_CASES + [(1 << 20, 256),
-                                                   (1_000_003, 256),
-                                                   (4097, 30)])
-def test_cuda_retrieval_score_matches_plain(cuda, c, d):
-    corpus = torch.from_numpy(_normal(c + d, c, d)).to(cuda)
-    q = torch.from_numpy(_normal(c + d + 1, d)).to(cuda)
+@pytest.mark.parametrize("c,d,x_off,q_off", _retrieval_params(
+    RETRIEVAL_CASES + [(1 << 20, 256), (1_000_003, 256), (4097, 30)]))
+def test_cuda_retrieval_score_matches_plain(cuda, c, d, x_off, q_off):
+    corpus, q = _retrieval_inputs(c, d, x_off, q_off, cuda)
+    assert (corpus.data_ptr() % 16 != 0) == bool(x_off)
     before = retrieval_scores.launch_count
     got = retrieval_scores(corpus, q)
     torch.cuda.synchronize()

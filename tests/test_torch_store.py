@@ -88,6 +88,14 @@ def test_multi_token_waves_match_reference_engine(stores, small_dataset, op):
         np.testing.assert_array_equal(g, port.engine.host_query(t, op=op))
 
 
+@pytest.mark.parametrize("kw", [{}, {"include_planes": True}])
+def test_engine_index_bytes_match_reference(stores, kw):
+    port, ref, _ = stores
+    assert port.engine.index_bytes(**kw) == ref.engine.index_bytes(**kw)
+    assert port.engine.index_bytes(**kw) == sum(
+        s.size_bytes(**kw) for s in port.segments) > 0
+
+
 def test_upload_count_is_one_per_segment(small_dataset):
     st = DynaWarpStore(device="cpu", **STORE_KW)
     st.ingest(small_dataset.lines[:1200])
@@ -172,6 +180,31 @@ def test_unported_paths_raise():
         DynaWarpStore.open("somewhere")
     with pytest.raises(ValueError):
         DynaWarpStore(device="cpu", mode="streaming")
+
+
+# the reference's keywords that the port takes at their defaults only,
+# each with a value it refuses until its slice is ported
+REF_ONLY_KW = [("extract_on_device", None, False), ("mmap", True, False),
+               ("fsync", False, True), ("background_compact", False, True),
+               ("publish_per_spill", True, False), ("compact_retry", 3, 5),
+               ("compact_backoff_s", 0.05, 0.5)]
+
+
+@pytest.mark.parametrize("kw,default,other", REF_ONLY_KW)
+def test_reference_keywords_accepted_at_default(kw, default, other):
+    """Each keyword has the reference's default, constructs a store at
+    that default, and raises "not yet ported" at any other value."""
+    import inspect
+    assert inspect.signature(DynaWarpStore).parameters[kw].default \
+        == inspect.signature(RefStore).parameters[kw].default == default
+    st = DynaWarpStore(device="cpu", batch_lines=16, **{kw: default})
+    st.ingest([f"line {i} id=abc{i % 7}" for i in range(40)])
+    st.finish()
+    assert st.query_term("abc3").matches == list(range(3, 40, 7))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        DynaWarpStore(device="cpu", **{kw: other})
+    if kw == "extract_on_device":
+        DynaWarpStore(device="cpu", extract_on_device=True)
 
 
 def test_default_mode_is_batch_as_in_reference():
