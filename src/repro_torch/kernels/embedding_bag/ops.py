@@ -18,8 +18,9 @@ def _kernel():
 
 
 def embedding_bag_sum(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(V, D) f32 table, (B, BAG) int32 indices -> (B, D) f32 bag sums,
-    summed in bag order.  Indices must satisfy 0 <= idx < V; that is checked
+    """(V, D) f32 table, (B, BAG) int32 indices -> (B, D) f32 bag sums
+    (the kernel's order of summation is its own, see its note).  Indices
+    must satisfy 0 <= idx < V; that is checked
     on CPU tensors only (on the card it would cost a sync).  A CUDA tensor
     launches the kernel; a CPU tensor takes the plain version."""
     if (table.dim() != 2 or table.dtype != torch.float32

@@ -25,45 +25,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[4]
-
-
-def _build_variants(build, srcs: list[Path]) -> dict[str, tuple]:
-    """Compile other sources of the kernel beside the package's builds,
-    all nvcc processes at once; returns each source's library and the
-    compiler's resource report, by file name."""
-    flags = (*build.NVCC_FLAGS, "-Xptxas", "-v")
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for src in srcs:
-        digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()) \
-            .hexdigest()[:16]
-        out = build.BUILD_DIR / f"bench-{src.stem}-{digest}.so"
-        jobs.append((src, out, subprocess.Popen(
-            [build._nvcc(), *flags, "-o", str(out), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    built = {}
-    for src, out, proc in jobs:
-        log = proc.communicate(timeout=600)[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {src}:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        built[src.name] = (lib, log)
-    return built
-
-
-def _registers(log: str) -> list[str]:
-    return [line.strip() for line in log.splitlines() if "registers" in line]
 
 
 def main() -> int:
@@ -97,13 +65,12 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     logs = build.build(("retrieval_score",), ptxas_verbose=True)
-    for line in _registers(logs.get("retrieval_score", "")):
-        print(f"ptxas retrieval_score: {line}", flush=True)
+    cs.print_registers("retrieval_score", logs.get("retrieval_score", ""))
     variants = {}
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name, (lib, log) in _build_variants(build, args.cu).items():
-        for line in _registers(log):
-            print(f"ptxas {name}: {line}", flush=True)
+    for name, (lib, log) in (build.build_variants(args.cu) if args.cu
+                             else {}).items():
+        cs.print_registers(name, log)
         variants[name] = (lib, build.declare(
             lib, "retrieval_score_launch", p, p, i, i, i, p, p))
 
@@ -148,16 +115,7 @@ def main() -> int:
         for r in range(args.rounds):
             for name in (names if r % 2 == 0 else names[::-1]):
                 times[name].append(cs.device_ms(torch, fns[name]))
-        host_us = {}
-        for name, fn in fns.items():     # the host's cost of one launch
-            torch.cuda.synchronize()
-            spent = []
-            for _ in range(100):
-                t0 = time.perf_counter()
-                fn()
-                spent.append((time.perf_counter() - t0) * 1e6)
-            host_us[name] = statistics.median(spent)
-        torch.cuda.synchronize()
+        host_us = {name: cs.host_us(torch, fn) for name, fn in fns.items()}
         bound = (cs.nbytes(x, q) + 4 * x.shape[0]) / cs.HBM_BYTES_PER_S * 1e3
         print(json.dumps(dict(
             card=card, src=args.src, shape=label, c=x.shape[0], d=x.shape[1],

@@ -26,7 +26,7 @@ from repro_torch.kernels.bitmap_extract.ops import bitmap_extract
 from repro_torch.kernels.bitmap_extract.ref import bitmap_extract_ref
 from repro_torch.kernels.bitset_ops.ops import bitset_reduce, bitset_reduce_batch
 from repro_torch.kernels.bitset_ops.ref import bitset_reduce_batch_ref
-from repro_torch.kernels.csc_probe.ops import csc_partition_mask
+from repro_torch.kernels.csc_probe.ops import csc_partition_mask, host_seeds
 from repro_torch.kernels.csc_probe.ref import csc_probe_ref
 from repro_torch.kernels.embedding_bag.ops import embedding_bag_sum
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
@@ -172,7 +172,8 @@ def test_token_hash_plain_length_past_width_matches_numpy():
 
 # ------------------------------------------------------------- csc_probe
 CSC_CASES = [(1 << 12, 2, 16, 1), (1 << 16, 4, 64, 2),
-             (64, 3, 64, 2)]           # m = 64: every anchor wraps
+             (64, 3, 64, 2),           # m = 64: every anchor wraps
+             (1 << 16, 4, 64, 3)]      # j x k past the kernel's by-value seeds
 
 
 @pytest.mark.parametrize("m_bits,k,p,j", CSC_CASES)
@@ -191,6 +192,17 @@ def test_csc_probe_plain_matches_pallas_and_numpy(jx, m_bits, k, p, j):
         ref.partition_mask_jnp(jnp.asarray(q))))
     as_int64 = sk.partition_mask_torch(torch.from_numpy(q.astype(np.int64)))
     assert torch.equal(as_int64, got)
+
+
+def test_csc_probe_host_seeds_match_the_uploaded_seeds():
+    """The seeds the kernel takes by value are the ones the sketch uploads,
+    in the same order."""
+    for j, k in ((1, 4), (2, 4), (3, 4), (1, 40)):
+        sk = CSCSketch.build(m_bits=1 << 10, k=k, p=16, j=j)
+        want = _u32(sk.device_arrays("cpu")["seeds"])
+        assert list(host_seeds(j, k)) == want.tolist()
+        assert want.tolist() == [_seed(r, h) for r in range(j)
+                                 for h in range(k)]
 
 
 def test_csc_probe_plain_wraps_at_m():
@@ -360,6 +372,11 @@ def _retrieval_params(plain, edges=RETRIEVAL_EDGES):
 # the tests/test_kernels.py cases, plus xDeepFM's wide term: D = 1, BAG = 39
 EBAG_CASES = [(100, 8, 8, 2), (1000, 32, 64, 8), (500, 128, 16, 4),
               (39 * 128, 1, 512, 39)]
+# the CUDA kernel's layouts: BAG 1, 32, 33 and 70 (one lane group's pass
+# and past it), D 1, 17 and 33 (entry lanes, column lanes, a second column
+# step), B 1
+EBAG_EDGES = [(1000, 1, 33, 1), (1000, 17, 5, 32), (1000, 33, 3, 33),
+              (1000, 1, 1, 70), (1000, 17, 1, 70), (2000, 33, 2, 70)]
 # the tests/test_kernels.py cases (b, s, hq, hkv, d, cache_len)
 # blocks of the bf16 flash_decode kernel that an H100 SM holds at D = 128
 # (its 104,448-byte shared-memory ring), as the CUDA runtime counts them
@@ -396,7 +413,7 @@ def test_retrieval_score_plain_matches_pallas_and_jnp(jx, c, d, x_off, q_off):
     np.testing.assert_allclose(vals.numpy(), np.asarray(j_vals), **F32_TOL)
 
 
-@pytest.mark.parametrize("v,d,b,bag", EBAG_CASES)
+@pytest.mark.parametrize("v,d,b,bag", EBAG_CASES + EBAG_EDGES)
 def test_embedding_bag_plain_matches_pallas_and_jnp(jx, v, d, b, bag):
     jnp = jx.jnp
     table = _normal(v + d, v, d)
@@ -646,11 +663,18 @@ def test_cuda_token_hash_matches_plain(cuda, n, l):
     np.testing.assert_array_equal(_u32(got), np_token_fingerprints(toks, lens))
 
 
+# fingerprints past the largest call that the kernel gives lane groups
+CSC_WAVE = 1 << 17
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("m_bits,k,p,j", CSC_CASES + [(1 << 20, 4, 40, 1),
                                                       (1 << 14, 2, 256, 1),
-                                                      (1 << 27, 4, 64, 1)])
+                                                      (1 << 27, 4, 64, 1),
+                                                      (1 << 20, 40, 16, 1),
+                                                      (1 << 20, 3, 48, 3)])
 def test_cuda_csc_probe_matches_plain(cuda, m_bits, k, p, j):
+    """A small call (lane groups) and a wave (a thread per fingerprint)."""
     sk, _, _, q = _csc_case(m_bits, k, p, j, m_bits + p)
     fps = _i32(q).to(cuda)
     before = csc_partition_mask.launch_count
@@ -659,8 +683,25 @@ def test_cuda_csc_probe_matches_plain(cuda, m_bits, k, p, j):
     assert csc_partition_mask.launch_count == before + 1
     assert torch.equal(got, csc_probe_ref(sk, fps))
     np.testing.assert_array_equal(got.cpu().numpy(), sk.partition_mask(q))
+    wave = torch.cat([fps, _i32(np.random.default_rng(p).integers(
+        0, 2**32, CSC_WAVE, dtype=np.uint64)).to(cuda)])
+    assert torch.equal(csc_partition_mask(sk, wave), csc_probe_ref(sk, wave))
     sk.device_arrays("cuda")                   # another name of the card
     assert sk.upload_count == 1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("q", [1, 15])
+def test_cuda_csc_probe_one_query_call(cuda, q):
+    """A per-query call's size (one fingerprint, or a term and its n-grams)
+    on a sketch of the CSC path's size, m = 2^27."""
+    sk, _, _, all_fps = _csc_case(1 << 27, 4, 64, 1, q)
+    inserted = q - q // 2               # then random ones, 0 and 2^32 - 1
+    fps = np.concatenate([all_fps[:inserted], all_fps[all_fps.size - q // 2:]])
+    got = csc_partition_mask(sk, _i32(fps).to(cuda))
+    torch.cuda.synchronize()
+    assert got.shape == (q, 64) and bool(got[:inserted].any(dim=1).all())
+    np.testing.assert_array_equal(got.cpu().numpy(), sk.partition_mask(fps))
 
 
 @pytest.mark.requires_cuda
@@ -703,9 +744,9 @@ def test_cuda_retrieval_score_matches_plain(cuda, c, d, x_off, q_off):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("v,d,b,bag", EBAG_CASES + [(39_000_000, 1, 512, 39),
-                                                    (10_000, 64, 512, 39),
-                                                    (1000, 17, 33, 5)])
+@pytest.mark.parametrize("v,d,b,bag", EBAG_CASES + EBAG_EDGES + [
+    (39_000_000, 1, 512, 39), (10_000, 64, 512, 39), (1000, 17, 33, 5)] + [
+    (10_000, d, 77, bag) for d in (1, 17, 33) for bag in (1, 32, 33, 70)])
 def test_cuda_embedding_bag_matches_plain(cuda, v, d, b, bag):
     table = torch.from_numpy(_normal(v + d, v, d)).to(cuda)
     idx = torch.from_numpy(np.random.default_rng(b).integers(
@@ -715,6 +756,24 @@ def test_cuda_embedding_bag_matches_plain(cuda, v, d, b, bag):
     torch.cuda.synchronize()
     assert embedding_bag_sum.launch_count == before + 1
     torch.testing.assert_close(got, embedding_bag_ref(table, idx), **F32_TOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d", [4, 64, 128])
+def test_cuda_embedding_bag_unaligned_table(cuda, d):
+    """A table view off 16-byte alignment takes the scalar loads where an
+    aligned one of the same D takes float4 loads."""
+    v, b, bag = 5000, 77, 39
+    buf = torch.from_numpy(_normal(d, v * d + 1)).to(cuda)
+    table = buf[1:].view(v, d)
+    assert table.data_ptr() % 16 != 0
+    idx = torch.from_numpy(np.random.default_rng(d).integers(
+        0, v, (b, bag)).astype(np.int32)).to(cuda)
+    got = embedding_bag_sum(table, idx)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, embedding_bag_ref(table, idx), **F32_TOL)
+    torch.testing.assert_close(got, embedding_bag_sum(table.clone(), idx),
+                               **F32_TOL)
 
 
 @pytest.mark.requires_cuda
