@@ -9,16 +9,24 @@ Phases (any failure raises, so the exit code is not 0):
      (nvcc, one process per source, all at once);
   3. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at the edges (ragged W, Q not a power of two,
-     empty / full / over-max_hits rows, absent keys, fallback keys, token
-     rows of length 0, L and past L), bit for bit, and time both
-     (``token_hash`` also at the median term matrix that phase 4's ingest
-     launched);
+     empty / full / over-max_hits rows, absent keys, fallback keys in and
+     past shared memory, signature-rejected keys, more MPHF levels than the
+     kernel takes by value, accumulators wider and narrower than a
+     segment's planes, a one-token segment, token rows of length 0, L and
+     past L, widths of 1, 3, 22 and past one staging window, matrices off
+     16-byte alignment), bit for bit, and time both (``sketch_probe``'s
+     two entries: the probe and the fused segment probe; ``token_hash``
+     also at the median term matrix that phase 4's ingest launched and at
+     each wave's matrix, the fused probe also as the term wave launches it
+     on the largest segment);
   4. the segmented path: a 1M-line synthetic log (1000 sources) ingested
      into ``DynaWarpStore(mode="segmented")`` at the paper's defaults on the
      GPU (its term matrices through ``token_hash``), then waves of term and
-     multi-token contains queries; every candidate list must equal the
-     engine's scalar host path and a sample of term answers must equal the
-     scan store's;
+     multi-token contains queries, each wave's tokens hashed by one
+     ``token_hash`` launch and each segment probed by one launch of the
+     fused ``sketch_probe`` entry (required); every candidate list must
+     equal the engine's scalar host path and a sample of term answers must
+     equal the scan store's;
   5. the CSC path: ``CscStore`` on the same lines, sized by the paper's
      protocol (the next power of two above the DynaWarp sketch's bits), its
      bits on the GPU; the same term and contains queries as one
@@ -135,6 +143,23 @@ CSC_WAVE = 1 << 17   # phase 5 edges: past the largest lane-group call
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+class LaunchSum:
+    """The launch counts of a kernel's several entries as one counter:
+    reading sums them, setting sets each."""
+
+    def __init__(self, *entries):
+        self.entries = entries
+
+    @property
+    def launch_count(self) -> int:
+        return sum(e.launch_count for e in self.entries)
+
+    @launch_count.setter
+    def launch_count(self, value: int) -> None:
+        for e in self.entries:
+            e.launch_count = value
 
 
 def reset(counters) -> None:
@@ -262,14 +287,82 @@ def bitmaps_input(np, seed, q, w):
     return packed.view(np.uint32).reshape(q, w)
 
 
-def mphf_input(np, build_mphf, seed, n_keys, max_levels, q):
+def mphf_input(np, build_mphf, seed, n_keys, max_levels, q, gamma=2.0):
     rng = np.random.default_rng(seed)
     keys = np.unique(rng.integers(0, 2**32, n_keys, dtype=np.uint64)
                      .astype(np.uint32))
     absent = rng.integers(0, 2**32, q, dtype=np.uint64).astype(np.uint32)
     fps = np.concatenate([rng.choice(keys, q // 2), absent[:q - q // 2 - 2],
                           [0, 0xFFFFFFFF]]).astype(np.uint32)
-    return build_mphf(keys, max_levels=max_levels), fps
+    return build_mphf(keys, max_levels=max_levels, gamma=gamma), fps
+
+
+def segment_input(np, seed, n_tokens, n_postings, gamma=2.0, sig_bits=8):
+    """A plane-backed segment of ~n_tokens random tokens, each in two
+    random postings of n_postings (W = ceil(n_postings / 32) words), and
+    its keys."""
+    from repro_torch.core.batch_builder import build_sealed
+    from repro_torch.core.immutable_sketch import build_immutable
+    rng = np.random.default_rng(seed)
+    keys = np.unique(rng.integers(0, 2**32, n_tokens, dtype=np.uint64)
+                     .astype(np.uint32))
+    fps = np.repeat(keys, 2)
+    sk = build_immutable(build_sealed(fps, rng.integers(0, n_postings,
+                                                        fps.size)),
+                         gamma=gamma, sig_bits=sig_bits)
+    return sk, keys
+
+
+def wave_input(np, seed, keys, q):
+    """q probe fingerprints: half of them keys, half random (absent)."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.choice(keys, q - q // 2), rng.integers(
+        0, 2**32, q // 2, dtype=np.uint64)]).astype(np.uint32)
+
+
+def probe_walk(np, mphf, fps):
+    """Per fingerprint: the levels the MPHF probe walks up to its first set
+    bit (all of them when none is set), and whether one is set."""
+    from repro_torch.core.hashing import np_seeded_hash32
+    from repro_torch.core.mphf import _level_seed
+    walked = np.zeros(fps.size, np.int64)
+    found = np.zeros(fps.size, bool)
+    for lvl in range(mphf.n_levels):
+        m = int(mphf.level_bits[lvl])
+        if m == 0:
+            continue
+        walked += ~found
+        pos = np_seeded_hash32(fps, _level_seed(lvl)) % np.uint32(m)
+        gbit = pos.astype(np.int64) + (int(mphf.level_word_offset[lvl]) << 5)
+        found |= ((mphf.words[gbit >> 5] >> (gbit & 31).astype(np.uint32))
+                  & 1).astype(bool)
+    return walked, found
+
+
+def probe_bytes(np, mphf, fps) -> int:
+    """The bytes the probe entry needs for these fingerprints: each one, the
+    level words its walk touches, the rank block and its sampled rank
+    where a level holds it, the fallback keys a binary search reads where
+    none does, and the 5 bytes written."""
+    walked, found = probe_walk(np, mphf, fps)
+    search = int(np.ceil(np.log2(mphf.fallback_fps.size + 1)))
+    return int(9 * fps.size + 4 * walked.sum() + 36 * found.sum()
+               + 4 * search * (~found).sum())
+
+
+def fused_bytes(np, sk, fps, w_out) -> int:
+    """The bytes the fused entry needs: the probe's reads (not its
+    output); the signature word where the MPHF resolves the key; where the
+    key is present the CSF sample, 6 length words and 2 code words and the
+    W plane words read; and an accumulator word read and written for each
+    non-zero plane word only (x | 0 = x, so a zero word needs none)."""
+    _, absent = sk.mphf.lookup_np(fps)
+    present, rank = sk.probe_fingerprints_np(fps)
+    w = min(sk.planes.shape[1], w_out)
+    nonzero = np.count_nonzero(sk.planes[rank[present], :w])
+    return int(probe_bytes(np, sk.mphf, fps) - 5 * fps.size
+               + 4 * (~absent).sum() + present.sum() * (40 + 4 * w)
+               + 8 * nonzero)
 
 
 # ---------------------------------------------------------------- phase 3
@@ -306,6 +399,41 @@ def hold(torch, name, cases, kernel, plain, bytes_of, main,
     return out
 
 
+def hold_fused(torch, np, cases, flush) -> dict:
+    """sketch_probe's fused entry against its plain version on every case
+    (segment, fps, arrs, accumulator, label), each side OR-ing into its own
+    copy of the accumulator, bit for bit; then both timed at ``cases[0]``
+    (kernel warm and cold), OR-ing into one accumulator (the OR is
+    idempotent), with the bytes bound of that case."""
+    from repro_torch.kernels.sketch_probe.ops import match_planes
+    from repro_torch.kernels.sketch_probe.ref import match_planes_ref
+    shapes = []
+    for sk, f, a, acc, label in cases:
+        got = match_planes(f, a, acc.clone(), sig_bits=sk.sig_bits)
+        want = match_planes_ref(f, a, acc.clone(), sig_bits=sk.sig_bits)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"sketch_probe's fused entry "
+                f"disagrees with its plain version on {label}")
+        shapes.append(label)
+    sk, f, a, acc, label = cases[0]
+    acc = acc.clone()
+
+    def kernel():
+        return match_planes(f, a, acc, sig_bits=sk.sig_bits)
+
+    ms, cold = device_ms(torch, kernel), device_ms(torch, kernel, flush)
+    plain_ms = device_ms(torch, lambda: match_planes_ref(
+        f, a, acc, sig_bits=sk.sig_bits))
+    bound = fused_bytes(np, sk, f.cpu().numpy().view(np.uint32),
+                        acc.shape[1]) / HBM_BYTES_PER_S * 1e3
+    print(f"kernel sketch_probe (fused entry): bit-exact on {len(cases)} "
+          f"cases {shapes}; at {label}: kernel {ms:.4f} ms, cold {cold:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, bound {bound:.6f} ms (bytes)",
+          flush=True)
+    return dict(max_abs_err=0, ms=ms, cold_ms=cold, plain_ms=plain_ms,
+                bound_ms=bound, shape=label)
+
+
 def token_matrix(np, seed, n, l):
     """A zero-padded (N, L) token matrix with lengths over 0..L, a row of
     length 0, a full row and (from N = 5) a length past L."""
@@ -336,26 +464,52 @@ def check_kernels(torch, np, dev) -> dict:
     from repro_torch.logstore.datasets import generate_dataset
 
     run = functools.partial(hold, torch)
+    flush = l2_flush(torch, dev)
     results = {}
-    # sketch_probe: a main-path-sized MPHF (~200k keys, the largest
-    # segment's), one whose keys partly land in the fallback array, a tiny one
+    # sketch_probe's probe entry: a main-path-sized MPHF (~200k keys, the
+    # largest segment's), one whose keys partly land in the fallback array,
+    # a tiny one, and one past the 12 levels the kernel takes by value
     probe_cases = []
     for seed, n_keys, levels, q in ((1, 200_000, 12, 8192),
                                     (2, 50_000, 2, 1000),
-                                    (3, 40, 12, 7)):
-        m, fps = mphf_input(np, build_mphf, seed, n_keys, levels, q)
-        require(levels == 12 or m.fallback_fps.size > 0,
+                                    (3, 40, 12, 7), (4, 3000, 40, 999)):
+        m, fps = mphf_input(np, build_mphf, seed, n_keys, levels, q,
+                            gamma=0.3 if levels > 12 else 2.0)
+        require(levels != 2 or m.fallback_fps.size > 0,
                 "fallback case has no fallback keys")
+        require(levels <= 12 or m.n_levels > 12, "too few levels")
         probe_cases.append((u32_tensor(torch, np, fps, dev),
-                            m.device_arrays(dev),
-                            f"Q={q} keys={n_keys} fallback={m.fallback_fps.size}"))
+                            m.device_arrays(dev), m,
+                            f"Q={q} keys={n_keys} levels={m.n_levels} "
+                            f"fallback={m.fallback_fps.size}"))
     results["sketch_probe"] = run(
-        "sketch_probe", probe_cases,
-        lambda f, a, _: mphf_probe_arrs(f, a),
-        lambda f, a, _: sketch_probe_ref(f, a),
-        lambda f, a, _: (nbytes(f) + nbytes(*(v for v in a.values()
-                                               if isinstance(v, torch.Tensor)))
-                         + 5 * f.numel()), 0)
+        "sketch_probe (probe entry)", probe_cases,
+        lambda f, a, m, _: mphf_probe_arrs(f, a),
+        lambda f, a, m, _: sketch_probe_ref(f, a),
+        lambda f, a, m, _: probe_bytes(np, m, f.cpu().numpy().view(np.uint32)),
+        0, flush)
+    # the fused entry: the term wave's size against a segment of the
+    # largest one's size (W 62); fallback keys past the shared-memory
+    # search (W_seg < W_out) and within it (W_seg > W_out, cut); a
+    # one-token segment; 32-bit signatures; Q off a warp and Q = 1
+    fused = []
+    for seed, n_tok, n_post, gamma, sig_bits, q, w_out in (
+            (5, 200_000, 1984, 2.0, 8, 4096, 62),
+            (6, 3000, 40, 0.1, 5, 4096, 62),
+            (7, 3000, 2000, 0.5, 12, 1000, 62),
+            (8, 1, 3, 2.0, 8, 1001, 62),
+            (9, 4000, 64, 2.0, 32, 1, 1)):
+        sk, keys = segment_input(np, seed, n_tok, n_post, gamma, sig_bits)
+        fps = wave_input(np, seed, keys, q)
+        acc = torch.from_numpy(np.random.default_rng(seed).integers(
+            -2**31, 2**31, (q, w_out)).astype(np.int32)).to(dev)
+        fused.append((sk, u32_tensor(torch, np, fps, dev),
+                      sk.device_arrays(dev), acc,
+                      f"Q={q} tokens={sk.n_tokens} W={sk.planes.shape[1]}"
+                      f"->{w_out} fallback={sk.mphf.fallback_fps.size} "
+                      f"sig_bits={sig_bits}"))
+    results["sketch_probe"]["probe_entry"] = dict(results["sketch_probe"])
+    results["sketch_probe"].update(hold_fused(torch, np, fused, flush))
 
     def planes_cases(shapes):
         out = []
@@ -396,8 +550,10 @@ def check_kernels(torch, np, dev) -> dict:
 
     # token_hash: the main shape is a real term matrix (rules 1-5 tokens of
     # generated log lines, packed to 64 bytes as the ingest path packs
-    # them); the edges are odd widths, N off the block, N = 0, lengths 0,
-    # L and past L, and a matrix that is not 16-byte aligned
+    # them); the edges are odd widths (the ingest's 22, the contains
+    # wave's 3, L = 1, widths past one staging window), N off the block,
+    # N = 0, lengths 0, L and past L, and matrices at 4, 1 and 13 bytes
+    # past 16-byte alignment
     ds = generate_dataset("tokens", n_lines=4096, n_sources=64, seed=SEED)
     tokens = tokenize_lines_columnar(ds.lines, ngrams=False)[0]
     require(len(tokens) >= N_TOKEN_ROWS, "too few tokens for the main shape")
@@ -405,21 +561,26 @@ def check_kernels(torch, np, dev) -> dict:
     th = [(torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev),
            f"term matrix {mat.shape}")]
     for i, (n, l) in enumerate(((8, 4), (100, 24), (1025, 12), (4096, 16),
-                                (257, 64), (0, 64), (3, 1))):
+                                (257, 64), (0, 64), (3, 1), (1, 1),
+                                (12_456, 22), (6000, 3), (300, 65),
+                                (77, 200), (5, 5000))):
         t, ln = token_matrix(np, 30 + i, n, l)
         th.append((torch.from_numpy(t).to(dev), torch.from_numpy(ln).to(dev),
                    f"({n}, {l})"))
-    t, ln = token_matrix(np, 40, 999, 64)
-    buf = torch.zeros(t.size + 4, dtype=torch.uint8, device=dev)
-    unaligned = buf[4:].view(999, 64)
-    unaligned.copy_(torch.from_numpy(t).to(dev))
-    th.append((unaligned, torch.from_numpy(ln).to(dev), "(999, 64) unaligned"))
-    results["token_hash"] = hold_token_hash(torch, th)
+    for i, (n, l, off) in enumerate(((999, 64, 4), (999, 22, 1),
+                                     (6000, 3, 13))):
+        t, ln = token_matrix(np, 50 + i, n, l)
+        buf = torch.zeros(t.size + off, dtype=torch.uint8, device=dev)
+        unaligned = buf[off:].view(n, l)
+        unaligned.copy_(torch.from_numpy(t).to(dev))
+        th.append((unaligned, torch.from_numpy(ln).to(dev),
+                   f"({n}, {l}) {off} bytes off alignment"))
+    results["token_hash"] = hold_token_hash(torch, th, flush)
     return results
 
 
-def hold_token_hash(torch, cases) -> dict:
-    """``hold`` for token_hash, timed at ``cases[0]``."""
+def hold_token_hash(torch, cases, flush) -> dict:
+    """``hold`` for token_hash, timed at ``cases[0]``, warm and cold."""
     from repro_torch.kernels.token_hash.ops import token_fingerprints
     from repro_torch.kernels.token_hash.ref import token_hash_ref
     return hold(
@@ -429,7 +590,7 @@ def hold_token_hash(torch, cases) -> dict:
         # the bytes the hash needs: each row's first min(len, L) bytes, the
         # lengths, the fingerprints
         lambda t, ln, _: (int(ln.clamp(0, t.shape[1]).sum()) + 8 * t.shape[0]),
-        0)
+        0, flush)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -958,9 +1119,10 @@ def recsys_path(torch, np, dev, counters, two_tower_cfg=None,
 # ---------------------------------------------------------------- phase 4
 def main_path(torch, np, dev, counters) -> dict:
     from repro_torch.core import batch_builder
-    from repro_torch.core.query_engine import _as_fp
     from repro_torch.core.tokenizer import (contains_query_tokens,
                                             term_query_tokens)
+    from repro_torch.kernels.sketch_probe.ops import (match_planes,
+                                                      mphf_probe_arrs)
     from repro_torch.logstore.datasets import (generate_dataset, id_queries,
                                                present_id_queries)
     from repro_torch.logstore.store import DynaWarpStore, ScanStore
@@ -981,9 +1143,10 @@ def main_path(torch, np, dev, counters) -> dict:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # the (N, L) term matrix of every token_hash launch of the ingest, and
-    # every 64th matrix itself: phase 3's kernel is also timed at the
-    # median launch
+    # every 64th matrix itself, and each wave's matrix (``stages``): phase
+    # 3's kernel is also timed at the median ingest launch and at the waves
     inner, launched, kept = batch_builder.token_matrix_fingerprints, [], []
+    wave_mats = {}
 
     def recording(mat, lengths, device):
         if len(launched) % 64 == 0:
@@ -1009,10 +1172,12 @@ def main_path(torch, np, dev, counters) -> dict:
     gc.collect()
     gc.freeze()
     eng = store.engine
+    n_planes = sum(s.planes is not None for s in store.segments)
     waves = {}
 
     def wave(name, fn):
         before = {k: c.launch_count for k, c in counters.items()}
+        entries = (match_planes.launch_count, mphf_probe_arrs.launch_count)
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -1025,6 +1190,15 @@ def main_path(torch, np, dev, counters) -> dict:
                 f"{name}: a repeated wave answered differently")
         launches = {k: (c.launch_count - before[k]) // 2
                     for k, c in counters.items()}
+        fused = (match_planes.launch_count - entries[0]) // 2
+        require(launches["token_hash"] == 1, f"{name}: token_hash launched "
+                f"{launches['token_hash']} times a wave, not once")
+        require(fused == launches["sketch_probe"] == n_planes,
+                f"{name}: {fused} fused probes a wave for {n_planes} "
+                f"segments ({launches['sketch_probe']} sketch_probe "
+                f"launches in all)")
+        require(mphf_probe_arrs.launch_count == entries[1],
+                f"{name}: the wave launched the probe entry")
         wall_ms, busy_ms = device_busy(torch, fn)
         waves[name] = dict(queries=len(out), cold_s=cold, warm_s=warm,
                            warm_qps=len(out) / warm, launches=launches,
@@ -1041,27 +1215,46 @@ def main_path(torch, np, dev, counters) -> dict:
                 for op in ("and", "or")}
 
     def stages(name, token_lists, op):
-        """Host-clock split of one warm wave into the engine's stages."""
+        """Host-clock split of one warm wave into the engine's stages; the
+        fingerprint stage's token_hash call alone (the matrix up, one
+        launch, the fingerprints back) is timed again after it, on the
+        wave's matrix as an untimed call before the split recorded it."""
+        def capture(mat, lengths, device):
+            wave_mats[name] = (mat.copy(), lengths.copy())
+            return inner(mat, lengths, device)
+
+        batch_builder.token_matrix_fingerprints = capture
+        try:
+            batch_builder.wave_fingerprints(token_lists, device=dev)
+        finally:
+            batch_builder.token_matrix_fingerprints = inner
         t = [time.perf_counter()]
-        fps_lists = [[_as_fp(x) for x in toks] for toks in token_lists]
-        live = [i for i, f in enumerate(fps_lists) if f]
+        flat, lens = batch_builder.wave_fingerprints(token_lists, device=dev)
+        live = np.flatnonzero(lens)
         t.append(time.perf_counter())
-        fps, mask = eng._pack(fps_lists, live)
+        fps, mask = eng._pack(flat, lens[live])
         t.append(time.perf_counter())
         bitmaps, counts = eng._evaluate(fps, mask, op)
         t.append(time.perf_counter())
-        eng._extract(bitmaps, counts[:len(live)])
+        eng._extract(bitmaps, counts[:live.size])
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         ms = [1e3 * (b - a) for a, b in zip(t, t[1:])]
+        mat, lengths = wave_mats[name]
+        t0 = time.perf_counter()
+        inner(mat, lengths, dev)
+        hash_ms = 1e3 * (time.perf_counter() - t0)
         waves[name]["stages_ms"] = dict(zip(
-            ("fingerprint", "pack", "probe_fold", "extract"), ms))
-        print(f"wave {name} stages (host clock): fingerprint {ms[0]:.2f} ms, "
-              f"pack {ms[1]:.2f} ms, probe+fold {ms[2]:.2f} ms, "
-              f"extract {ms[3]:.2f} ms", flush=True)
+            ("fingerprint", "pack", "probe_fold", "extract"), ms),
+            fingerprint_token_hash_call=hash_ms)
+        print(f"wave {name} stages (host clock): fingerprint {ms[0]:.2f} ms "
+              f"(of it the token_hash call {hash_ms:.2f} ms), pack "
+              f"{ms[1]:.2f} ms, probe+fold {ms[2]:.2f} ms, extract "
+              f"{ms[3]:.2f} ms", flush=True)
+        return fps
 
-    stages("term", [term_query_tokens(t) for t in terms], "and")
-    stages("contains_and", needle_toks, "and")
+    term_fps = stages("term", [term_query_tokens(t) for t in terms], "and")
+    stages("contains_and", needle_toks, "and")     # the OR wave's tokens too
     launches = read(counters)
     # ------------------------------------------------------------ checks
     segs = store.segments
@@ -1107,10 +1300,21 @@ def main_path(torch, np, dev, counters) -> dict:
                         case=(mat, lens))
     print(f"token_hash launches of the ingest: {len(launched)}, rows "
           f"{rows[0]}..{rows[-1]}, median {median}, widths "
-          f"{token_launch['widths']}", flush=True)
+          f"{token_launch['widths']}; waves "
+          f"{ {k: m.shape for k, (m, _) in wave_mats.items()} }", flush=True)
+    # the fused probe as the term wave launches it on the largest segment
+    big = max(store.segments, key=lambda sg: sg.n_tokens)
+    fused_case = (big, u32_tensor(torch, np, term_fps.reshape(-1), dev),
+                  big.device_cache(dev),
+                  torch.zeros((term_fps.size, eng.words), dtype=torch.int32,
+                              device=dev),
+                  f"term wave Q={term_fps.size} against the largest segment "
+                  f"({big.n_tokens} tokens, W={big.planes.shape[1]}->"
+                  f"{eng.words})")
     return dict(launches=launches, waves=waves, ingest_s=ingest_s,
                 ds=ds, terms=terms, needles=needles, needle_toks=needle_toks,
-                store=store, scan=scan, truth=truth, token_launch=token_launch)
+                store=store, scan=scan, truth=truth, token_launch=token_launch,
+                wave_mats=wave_mats, fused_case=fused_case)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1396,8 +1600,9 @@ def main() -> int:
     from repro_torch.kernels import (bitmap_extract, bitset_reduce,
                                      bitset_reduce_batch, build,
                                      csc_partition_mask, embedding_bag_sum,
-                                     flash_decode, mphf_probe_arrs,
-                                     retrieval_scores, token_fingerprints)
+                                     flash_decode, match_planes,
+                                     mphf_probe_arrs, retrieval_scores,
+                                     token_fingerprints)
     # the plain versions' f32 products in full f32, as the JAX package's
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1418,7 +1623,7 @@ def main() -> int:
 
     kernels = check_kernels(torch, np, dev)
     kernels.update(check_model_kernels(torch, dev))
-    counters = {"sketch_probe": mphf_probe_arrs,
+    counters = {"sketch_probe": LaunchSum(mphf_probe_arrs, match_planes),
                 "bitset_reduce_batch": bitset_reduce_batch,
                 "bitset_reduce": bitset_reduce,
                 "bitmap_extract": bitmap_extract,
@@ -1432,9 +1637,19 @@ def main() -> int:
     seg_summary = dict(ingest_s=seg["ingest_s"], waves=seg["waves"])
     launch = seg["token_launch"]
     mat, lens = launch.pop("case")
+    flush = l2_flush(torch, dev)
+
+    def th_case(mat, lens, label):
+        return [(torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev),
+                 f"{label} {mat.shape}")]
+
     kernels["token_hash"]["at_launch"] = dict(launch, **hold_token_hash(
-        torch, [(torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev),
-                 f"median ingest launch {mat.shape}")]))
+        torch, th_case(mat, lens, "median ingest launch"), flush))
+    kernels["token_hash"]["at_waves"] = {
+        name: hold_token_hash(torch, th_case(m, ln, f"{name} wave"), flush)
+        for name, (m, ln) in seg.pop("wave_mats").items()}
+    kernels["sketch_probe"]["at_launch"] = hold_fused(
+        torch, np, [seg.pop("fused_case")], flush)
     paths["segmented"] = seg["launches"]
     for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
                  "token_hash"):
@@ -1495,7 +1710,8 @@ def main() -> int:
                  bound_by="bytes", library_ms=k.get("library_ms"),
                  shape=k["shape"],
                  **{key: k[key] for key in ("cold_ms", "library_cold_ms",
-                                            "at_launch") if key in k})
+                                            "at_launch", "at_waves",
+                                            "probe_entry") if key in k})
             for name, k in kernels.items()]
     total_s = time.perf_counter() - t_start
     print(json.dumps(dict(card=card, total_s=total_s,

@@ -67,6 +67,51 @@ def fingerprint_tokens(tokens: list[bytes], *, device: torch.device
     return token_matrix_fingerprints(mat, lengths, device)
 
 
+def wave_fingerprints(token_lists, *, device: torch.device
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """A query wave's tokens -> (flat u32 fingerprints, query after query,
+    and (Q,) int64 token counts).  The ``bytes`` tokens are hashed whole
+    (no cut: each fingerprint equals scalar ``token_fingerprint``) by
+    ``_hash_whole_tokens``, one ``token_hash`` launch on a CUDA device for
+    a wave of tokens of at most MAX_TOKEN_BYTES (numpy on the CPU); any
+    other token is an integer fingerprint and passes through."""
+    lens = np.fromiter(map(len, token_lists), dtype=np.int64,
+                       count=len(token_lists))
+    flat = [tok for toks in token_lists for tok in toks]
+    if set(map(type, flat)) <= {bytes, bytearray}:     # the common wave
+        return _hash_whole_tokens(flat, device), lens
+    is_bytes = np.fromiter((isinstance(tok, (bytes, bytearray))
+                            for tok in flat), dtype=bool, count=len(flat))
+    fps = np.zeros(len(flat), np.uint32)
+    fps[is_bytes] = _hash_whole_tokens(
+        [tok for tok, b in zip(flat, is_bytes) if b], device)
+    ints = [int(tok) for tok, b in zip(flat, is_bytes) if not b]
+    fps[~is_bytes] = np.fromiter(ints, dtype=np.uint64,
+                                 count=len(ints)).astype(np.uint32)
+    return fps, lens
+
+
+def _hash_whole_tokens(tokens, device: torch.device) -> np.ndarray:
+    """u32 fingerprints of whole byte tokens.  Tokens of at most
+    MAX_TOKEN_BYTES share one matrix at the longest one's width (one
+    launch); each longer size class packs into its own power-of-two width
+    bucket, so one long raw token pads only its own bucket, never the
+    wave."""
+    if not tokens:
+        return np.zeros(0, np.uint32)
+    lens = np.fromiter(map(len, tokens), dtype=np.int64, count=len(tokens))
+    # frexp exponent == bit_length for positive ints (exact below 2^53)
+    tier = np.where(lens <= MAX_TOKEN_BYTES, 0,
+                    np.frexp(lens.astype(np.float64))[1])
+    fps = np.empty(len(tokens), np.uint32)
+    for t in np.unique(tier):
+        sel = np.flatnonzero(tier == t)
+        part = tokens if sel.size == len(tokens) else [tokens[i] for i in sel]
+        mat, lengths = pack_tokens_batch(part, max(int(lens[sel].max()), 1))
+        fps[sel] = token_matrix_fingerprints(mat, lengths, device)
+    return fps
+
+
 _SEP_U8 = np.frombuffer("".join(sorted(_SEPARATORS)).encode(),
                         dtype=np.uint8)
 # n-gram run matrices are packed in power-of-two length buckets above this

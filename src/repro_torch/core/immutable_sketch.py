@@ -7,10 +7,12 @@ Build pipeline (host):
 
 Query pipeline:
   * host   : scalar / numpy probes (Alg. 3 inner loop)
-  * device : the CUDA ``sketch_probe`` MPHF kernel, then torch ops for the
-             signature check, the CSF rank and the gather of the optional
-             dense bitmap planes that carry boolean algebra across query
-             tokens on the device.
+  * device : one launch of the CUDA ``sketch_probe`` kernel's fused entry
+             per segment and wave: MPHF probe, signature check, CSF rank
+             and the OR of the optional dense bitmap planes (which carry
+             boolean algebra across query tokens on the device) into the
+             wave's accumulator.  Its plain version is the torch chain
+             :func:`match_bitmap_plain`.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from .bitio import np_peek_bits, pack_bitmap_planes, pack_fixed_width
 from .csf import CompressedStaticFunction, _peek, build_csf, csf_get_torch
 from .hashing import (np_seeded_hash32, scalar_seeded_hash32,
                       token_fingerprint, torch_seeded_hash32)
-from .mphf import MPHF, build_mphf, u32_tensor
+from .mphf import MPHF, build_mphf, lookup_torch, u32_tensor
 from .mutable_sketch import SealedContent
 
 SIG_SEED = 0x516E4715
@@ -160,13 +162,15 @@ class ImmutableSketch:
         return sum(v.numel() * v.element_size() for v in memo[1].values()
                    if isinstance(v, torch.Tensor))
 
-    def match_bitmap_torch(self, fps: torch.Tensor, arrs: dict
-                           ) -> torch.Tensor:
+    def match_bitmap_torch(self, fps: torch.Tensor, arrs: dict, *,
+                           out: torch.Tensor | None = None) -> torch.Tensor:
         """(Q, W) posting bitmaps (int32-viewed u32) per query fingerprint;
-        absent tokens yield all-zero rows.  Requires bitmap planes."""
+        absent tokens yield all-zero rows.  With ``out``, the rows are OR-ed
+        into it instead (see :func:`match_bitmap_from`).  Requires bitmap
+        planes."""
         if self.planes is None:
             raise ValueError("bitmap planes were not built for this sketch")
-        return match_bitmap_from(fps, arrs, sig_bits=self.sig_bits)
+        return match_bitmap_from(fps, arrs, sig_bits=self.sig_bits, out=out)
 
 
 def _resolve_probe(fps, idx, absent, arrs, sig_bits: int):
@@ -183,22 +187,42 @@ def _resolve_probe(fps, idx, absent, arrs, sig_bits: int):
 
 
 def probe_tokens_from(fps, arrs, *, sig_bits: int):
-    """THE device probe code path: the ``sketch_probe`` MPHF kernel (its
-    plain version on CPU tensors) + signature check + CSF rank, over an
-    :meth:`ImmutableSketch.device_arrays` dict.  ``fps`` holds u32
+    """(present, rank) of each fingerprint: the ``sketch_probe`` kernel's
+    probe entry (its plain version on CPU tensors) + signature check + CSF
+    rank, over an :meth:`ImmutableSketch.device_arrays` dict, as the JAX
+    package's function of the same name returns them.  ``fps`` holds u32
     fingerprints as int32 bits or as int64 values."""
     from ..kernels.sketch_probe.ops import mphf_probe_arrs
     idx, absent = mphf_probe_arrs(fps.to(torch.int32), arrs)
     return _resolve_probe(fps, idx, absent, arrs, sig_bits)
 
 
-def match_bitmap_from(fps, arrs, *, sig_bits: int):
-    """(Q, W) int32-viewed u32 posting bitmaps via :func:`probe_tokens_from`
-    + plane gather; absent tokens (and all-zero padded rows) yield zero
-    rows."""
-    present, rank = probe_tokens_from(fps, arrs, sig_bits=sig_bits)
+def match_bitmap_from(fps, arrs, *, sig_bits: int, out=None):
+    """(Q, W) int32-viewed u32 posting bitmaps of the segment whose
+    :meth:`ImmutableSketch.device_arrays` are ``arrs``; absent tokens (and
+    all-zero padded rows) yield zero rows.  With ``out``, a (Q, W_out)
+    int32 accumulator, each row is OR-ed into it instead, cut or
+    zero-padded to W_out, and ``out`` is returned: the query engine's
+    per-segment step.  One launch of the fused ``sketch_probe`` entry on
+    CUDA tensors, :func:`match_bitmap_plain` on CPU tensors."""
+    from ..kernels.sketch_probe.ops import match_planes
+    if out is None:
+        out = torch.zeros((fps.numel(), arrs["planes"].shape[1]),
+                          dtype=torch.int32, device=fps.device)
+    return match_planes(fps.to(torch.int32), arrs, out, sig_bits=sig_bits)
+
+
+def match_bitmap_plain(fps, arrs, acc, *, sig_bits: int):
+    """The fused entry's plain version, the torch chain: the MPHF probe's
+    plain version, :func:`_resolve_probe`, the plane-row gather, and the OR
+    into ``acc`` (rows cut or zero-padded to its width).  Returns ``acc``."""
+    idx, absent = lookup_torch(fps, arrs)
+    present, rank = _resolve_probe(fps, idx, absent, arrs, sig_bits)
     rows = arrs["planes"][torch.clamp(rank, 0, arrs["n_lists1"])]
-    return torch.where(present[:, None], rows, 0)
+    rows = torch.where(present[:, None], rows, 0)
+    w = min(rows.shape[1], acc.shape[1])
+    acc[:, :w] |= rows[:, :w]
+    return acc
 
 
 # ---------------------------------------------------------------------- build

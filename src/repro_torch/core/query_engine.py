@@ -7,10 +7,13 @@ one extraction per wave:
   * **Per-segment device cache** — every segment's flat sketch buffers
     (:meth:`ImmutableSketch.device_cache`) are uploaded once and reused by
     all later waves; queries stream only fingerprints.
+  * **Wave fingerprinting** — every byte token of a wave is hashed by one
+    launch of the CUDA ``token_hash`` kernel (``wave_fingerprints``).
   * **Shape-bucketed batching** — Q queries x T token fingerprints are
-    packed into padded (Q_bucket, T_bucket) arrays (powers of two).  The
-    MPHF lookup runs through the CUDA ``sketch_probe`` kernel and the T-axis
-    boolean fold through the CUDA ``bitset_ops`` kernel.
+    packed into padded (Q_bucket, T_bucket) arrays (powers of two).  Each
+    segment's probe (MPHF, signature, CSF rank, plane-row OR) is one launch
+    of the CUDA ``sketch_probe`` kernel's fused entry, and the T-axis
+    boolean fold one of the CUDA ``bitset_ops`` kernel.
   * **Multi-segment fan-out** — per-spill immutable segments stay
     queryable (no monolithic merge): each segment contributes per-token
     posting bitmaps, OR-ed across segments before the AND/OR fold.  A
@@ -37,6 +40,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.bitmap_extract.ops import bitmap_extract
 from ..kernels.bitset_ops.ops import bitset_reduce_batch
+from .batch_builder import wave_fingerprints
 from .hashing import token_fingerprint
 
 _MIN_Q_BUCKET = 8
@@ -86,41 +90,49 @@ class QueryEngine:
 
     def query_batch(self, token_lists, *, op: str = "and"
                     ) -> list[np.ndarray]:
-        """A wave of queries; ``token_lists[i]`` is query i's tokens."""
-        return self.query_fps_batch(
-            [[_as_fp(t) for t in toks] for toks in token_lists], op=op)
+        """A wave of queries; ``token_lists[i]`` is query i's tokens (byte
+        tokens, hashed by one ``token_hash`` launch, or integer
+        fingerprints)."""
+        return self._wave(*wave_fingerprints(token_lists, device=self.device),
+                          op)
 
     def query_fps_batch(self, fps_lists, *, op: str = "and"
                         ) -> list[np.ndarray]:
         """Core wave evaluation over integer fingerprints."""
+        lens = np.fromiter((len(fps) for fps in fps_lists), dtype=np.int64,
+                           count=len(fps_lists))
+        flat = np.fromiter((fp for fps in fps_lists for fp in fps),
+                           dtype=np.uint64, count=int(lens.sum()))
+        return self._wave(flat.astype(np.uint32), lens, op)
+
+    def _wave(self, flat: np.ndarray, lens: np.ndarray, op: str
+              ) -> list[np.ndarray]:
         if op not in ("and", "or"):
             raise ValueError(f"op={op!r}")
-        n_queries = len(fps_lists)
+        n_queries = len(lens)
         # empty queries resolve to empty immediately (Alg. 3 semantics)
         results: list = [np.empty(0, np.int64)] * n_queries
-        live = [i for i, fps in enumerate(fps_lists) if len(fps)]
-        if not live or not self.segments or self.n_postings == 0:
+        live = np.flatnonzero(lens)
+        if not live.size or not self.segments or self.n_postings == 0:
             return [np.empty(0, np.int64) for _ in range(n_queries)]
 
-        fps_pad, mask = self._pack(fps_lists, live)
+        fps_pad, mask = self._pack(flat, lens[live])
         bitmaps, counts = self._evaluate(fps_pad, mask, op)
-        postings = self._extract(bitmaps, counts[:len(live)])
+        postings = self._extract(bitmaps, counts[:live.size])
         for out, i in zip(postings, live):
-            results[i] = out
+            results[int(i)] = out
         return results
 
     # ------------------------------------------------------------ packing
-    def _pack(self, fps_lists, live):
-        lens = np.asarray([len(fps_lists[i]) for i in live], np.int64)
+    def _pack(self, flat: np.ndarray, lens: np.ndarray):
+        """The live queries' fingerprints (``flat``, query after query,
+        ``lens`` each) -> padded (Qb, Tb) fingerprints and mask."""
         tb = _bucket(int(lens.max()), _MIN_T_BUCKET)
-        qb = _bucket(len(live), _MIN_Q_BUCKET)
+        qb = _bucket(lens.size, _MIN_Q_BUCKET)
         fps = np.zeros((qb, tb), dtype=np.uint32)
         mask = np.zeros((qb, tb), dtype=bool)
-        total = int(lens.sum())
-        flat = np.fromiter((fp for i in live for fp in fps_lists[i]),
-                           dtype=np.uint64, count=total).astype(np.uint32)
-        rows = np.repeat(np.arange(len(live)), lens)
-        cols = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+        rows = np.repeat(np.arange(lens.size), lens)
+        cols = np.arange(flat.size) - np.repeat(np.cumsum(lens) - lens, lens)
         fps[rows, cols] = flat
         mask[rows, cols] = True
         return fps, mask
@@ -148,17 +160,16 @@ class QueryEngine:
 
     def _device_token_planes(self, fps_dev: torch.Tensor) -> torch.Tensor:
         """(Qb, Tb) device fps -> (Qb, Tb, W) int32 token planes OR-ed over
-        the plane-backed segments, one probe per segment.  Each segment's
-        rows are cut or zero-padded to the engine-global width W."""
+        the plane-backed segments, one launch of the fused probe per
+        segment.  Each segment's rows are cut or zero-padded to the
+        engine-global width W."""
         qb, tb = fps_dev.shape
-        acc = torch.zeros((qb, tb, self.words), dtype=torch.int32,
+        acc = torch.zeros((qb * tb, self.words), dtype=torch.int32,
                           device=self.device)
         flat = fps_dev.reshape(-1)
         for _, seg in self._plane_segs:
-            rows = seg.match_bitmap_torch(flat, self._seg_arrs(seg))
-            w = min(rows.shape[-1], self.words)
-            acc[:, :, :w] |= rows[:, :w].reshape(qb, tb, w)
-        return acc
+            seg.match_bitmap_torch(flat, self._seg_arrs(seg), out=acc)
+        return acc.view(qb, tb, self.words)
 
     def _seg_arrs(self, seg):
         if not seg.has_device_cache(self.device):

@@ -196,18 +196,14 @@ def pack_slices(bu8: np.ndarray, starts: np.ndarray, lens: np.ndarray,
 
 def pack_tokens_batch(tokens: list[bytes], max_len: int = MAX_TOKEN_BYTES
                       ) -> tuple[np.ndarray, np.ndarray]:
-    """Vectorized :func:`pack_tokens`: one ``b"".join`` + a single
-    :func:`pack_slices` scatter instead of a per-token python loop (the
-    columnar ingest path packs whole flush batches of tokens at once)."""
+    """Vectorized :func:`pack_tokens`: each token cut to ``max_len`` and
+    zero-padded to it by one ``ljust``, then one ``b"".join`` into the
+    matrix: no per-token numpy call and no scatter.  The ingest's flush
+    batches and the query waves both pack through it."""
     n = len(tokens)
-    if n == 0:
-        return np.zeros((0, max_len), np.uint8), np.zeros(0, np.int32)
-    flat = np.frombuffer(b"".join(tokens), dtype=np.uint8)
-    full = np.fromiter((len(t) for t in tokens), dtype=np.int64, count=n)
-    starts = np.concatenate([[0], np.cumsum(full[:-1])])
-    mat, lengths = pack_slices(flat, starts, full, max_len)
-    # pad the matrix to the requested width (fingerprint callers rely on
-    # the length vector, not the width, so this is shape-compat only)
-    if mat.shape[1] < max_len:
-        mat = np.pad(mat, ((0, 0), (0, max_len - mat.shape[1])))
+    mat = np.frombuffer(bytearray(b"".join(
+        [t[:max_len].ljust(max_len, b"\0") for t in tokens])),
+        dtype=np.uint8).reshape(n, max_len)
+    lengths = np.minimum(np.fromiter(map(len, tokens), dtype=np.int32,
+                                     count=n), max_len)
     return mat, lengths

@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels of the port, one package per kernel.
 
-  sketch_probe    — immutable-sketch MPHF probe
+  sketch_probe    — immutable-sketch MPHF probe, and the fused segment probe
+                    of the query waves (probe + signature + CSF rank +
+                    plane-row OR)
   bitset_ops      — posting-plane AND/OR fold over the token axis + popcount
   bitmap_extract  — hit bitmap -> ascending posting ids
-  token_hash      — ingest-side batched token fingerprinting
+  token_hash      — batched token fingerprinting (ingest and query waves)
   csc_probe       — CSC baseline probe (the sketch-vs-sketch comparison)
   retrieval_score — two-tower retrieval: one query against a 1M-row corpus
   embedding_bag   — fixed-size bag sums (xDeepFM's wide term)
@@ -20,10 +22,10 @@ from .csc_probe.ops import csc_partition_mask
 from .embedding_bag.ops import embedding_bag_sum
 from .flash_decode.ops import flash_decode
 from .retrieval_score.ops import retrieval_scores, retrieval_topk
-from .sketch_probe.ops import mphf_probe, mphf_probe_arrs
+from .sketch_probe.ops import match_planes, mphf_probe, mphf_probe_arrs
 from .token_hash.ops import token_fingerprints
 
 __all__ = ["bitmap_extract", "bitset_reduce", "bitset_reduce_batch",
            "csc_partition_mask", "embedding_bag_sum", "flash_decode",
-           "mphf_probe", "mphf_probe_arrs", "retrieval_scores",
-           "retrieval_topk", "token_fingerprints"]
+           "match_planes", "mphf_probe", "mphf_probe_arrs",
+           "retrieval_scores", "retrieval_topk", "token_fingerprints"]

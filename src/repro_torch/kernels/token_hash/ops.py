@@ -1,5 +1,6 @@
 """Wrapper of the token_hash kernel: batched token fingerprints of a packed
-(N, L) u8 token matrix (the ingest path's term matrix)."""
+(N, L) u8 token matrix (the ingest path's term matrices and every query
+wave's tokens)."""
 from __future__ import annotations
 
 import ctypes
@@ -15,7 +16,7 @@ from .ref import token_hash_ref
 def _kernel():
     lib = build.library("token_hash")
     p, i = ctypes.c_void_p, ctypes.c_int
-    return lib, build.declare(lib, "token_hash_launch", p, p, i, i, i, p, p)
+    return lib, build.declare(lib, "token_hash_launch", p, p, i, i, p, p)
 
 
 def token_fingerprints(tokens_u8: torch.Tensor, lengths: torch.Tensor
@@ -40,10 +41,9 @@ def token_fingerprints(tokens_u8: torch.Tensor, lengths: torch.Tensor
                          f"{tokens_u8.device}")
     out = torch.empty(n, dtype=torch.int32, device=tokens_u8.device)
     if n:
-        vec = int(l % 16 == 0 and tokens_u8.data_ptr() % 16 == 0)
         lib, fn = _kernel()
         with torch.cuda.device(tokens_u8.device):
-            err = fn(tokens_u8.data_ptr(), lengths.data_ptr(), n, l, vec,
+            err = fn(tokens_u8.data_ptr(), lengths.data_ptr(), n, l,
                      out.data_ptr(), build.stream_of(tokens_u8))
         build.check(lib, err, "token_hash")
         token_fingerprints.launch_count += 1
