@@ -14,17 +14,26 @@ Phases (any failure raises, so the exit code is not 0):
      kernel takes by value, accumulators wider and narrower than a
      segment's planes, a one-token segment, token rows of length 0, L and
      past L, widths of 1, 3, 22 and past one staging window, matrices off
-     16-byte alignment), bit for bit, and time both (``sketch_probe``'s
-     two entries: the probe and the fused segment probe; ``token_hash``
-     also at the median term matrix that phase 4's ingest launched and at
-     each wave's matrix, the fused probe also as the term wave launches it
-     on the largest segment);
+     16-byte alignment, fold rows of 0 tokens and past T, extraction waves
+     with no answer), bit for bit, and time both (``sketch_probe``'s two
+     entries: the probe and the fused segment probe; ``bitset_ops``' and
+     ``bitmap_extract``'s two each: the query engine's ragged entries and
+     the (Q, T, W) and padded (Q, max_hits) ones; ``token_hash`` also at
+     the median term matrix that phase 4's ingest launched and at each
+     wave's matrix, the fused probe also as the term wave launches it on
+     the largest segment, the ragged fold and extraction at each wave's
+     own inputs);
   4. the segmented path: a 1M-line synthetic log (1000 sources) ingested
      into ``DynaWarpStore(mode="segmented")`` at the paper's defaults on the
      GPU (its term matrices through ``token_hash``), then waves of term and
      multi-token contains queries, each wave's tokens hashed by one
-     ``token_hash`` launch and each segment probed by one launch of the
-     fused ``sketch_probe`` entry (required); every candidate list must
+     ``token_hash`` launch, each segment probed by one launch of the
+     fused ``sketch_probe`` entry, the fold and the extraction one launch
+     each of the ragged entries, with no device work between the last probe
+     and the fold (required, the last by torch.profiler's trace); a wave's
+     answers must survive the next wave (held to a copy), its extraction
+     must copy at most 4 (answer ids + live queries + 1) bytes to the host
+     (printed with the host-clock stage split), every candidate list must
      equal the engine's scalar host path and a sample of term answers must
      equal the scan store's;
   5. the CSC path: ``CscStore`` on the same lines, sized by the paper's
@@ -162,6 +171,28 @@ class LaunchSum:
             e.launch_count = value
 
 
+def launch_counters() -> dict:
+    """Each kernel's launch counter, by its row's name in the kernel table
+    (a kernel's several entries summed)."""
+    from repro_torch.kernels import (bitmap_extract, bitmap_extract_ragged,
+                                     bitset_reduce, bitset_reduce_batch,
+                                     bitset_reduce_ragged, csc_partition_mask,
+                                     embedding_bag_sum, flash_decode,
+                                     match_planes, mphf_probe_arrs,
+                                     retrieval_scores, token_fingerprints)
+    return {"sketch_probe": LaunchSum(mphf_probe_arrs, match_planes),
+            "bitset_reduce_batch": LaunchSum(bitset_reduce_batch,
+                                             bitset_reduce_ragged),
+            "bitset_reduce": bitset_reduce,
+            "bitmap_extract": LaunchSum(bitmap_extract,
+                                        bitmap_extract_ragged),
+            "token_hash": token_fingerprints,
+            "csc_probe": csc_partition_mask,
+            "retrieval_score": retrieval_scores,
+            "embedding_bag": embedding_bag_sum,
+            "flash_decode": flash_decode}
+
+
 def reset(counters) -> None:
     for c in counters.values():
         c.launch_count = 0
@@ -229,10 +260,11 @@ def print_registers(name: str, log: str) -> None:
             print(f"ptxas {name}: {line.strip()}", flush=True)
 
 
-def device_busy(torch, fn) -> tuple[float, float | None]:
+def device_busy(torch, fn, trace=None) -> tuple[float, float | None]:
     """(wall ms, device busy ms) of one ``fn()`` call under torch.profiler:
     busy is the sum of the kernels' and copies' device time (None when the
-    profiler saw no device activity)."""
+    profiler saw no device activity).  A ``trace`` list receives the names
+    of the device's kernels and copies in the order they ran."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -241,8 +273,13 @@ def device_busy(torch, fn) -> tuple[float, float | None]:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+    cuda = torch.autograd.DeviceType.CUDA
     busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+               if e.device_type == cuda)
+    if trace is not None:
+        trace.extend(e.name for e in sorted(
+            (e for e in prof.events() if e.device_type == cuda),
+            key=lambda e: e.time_range.start))
     return wall * 1e3, (busy / 1e3 if busy else None)
 
 
@@ -363,6 +400,38 @@ def fused_bytes(np, sk, fps, w_out) -> int:
     return int(probe_bytes(np, sk.mphf, fps) - 5 * fps.size
                + 4 * (~absent).sum() + present.sum() * (40 + 4 * w)
                + 8 * nonzero)
+
+
+def fold_lens(np, seed, n, t):
+    """n token counts in 1..t, the first at t and the second at 1."""
+    lens = np.random.default_rng(seed).integers(1, t + 1, n).astype(np.int32)
+    lens[:2] = (t, 1)[:n]
+    return lens
+
+
+def fold_bytes(planes, lens) -> int:
+    """The bytes the ragged fold needs: the planes each live row folds
+    (its first lens[q], clamped to T), the counts read, and each row's
+    combined words and popcount written."""
+    _, t, w = planes.shape
+    return 4 * (w * int(lens.clamp(0, t).sum()) + lens.numel() * (w + 2))
+
+
+def extract_case(torch, np, bm, dev, label):
+    """(bitmaps, row offsets, total, label) of u32 bitmaps ``bm``: the
+    offsets are the exclusive prefix sums of the rows' popcounts, as the
+    engine gives them."""
+    counts = np.unpackbits(bm.view(np.uint8), axis=1).sum(axis=1)
+    ends = np.cumsum(counts)
+    return (u32_tensor(torch, np, bm, dev),
+            torch.from_numpy((ends - counts).astype(np.int32)).to(dev),
+            int(ends[-1]), label)
+
+
+def extract_bytes(bitmaps, offsets, total, _) -> int:
+    """The bytes the ragged extract needs: every bitmap word and offset
+    read, every id written."""
+    return nbytes(bitmaps, offsets) + 4 * total
 
 
 # ---------------------------------------------------------------- phase 3
@@ -518,14 +587,31 @@ def check_kernels(torch, np, dev) -> dict:
             out.append((p, op, f"{(q, t, w)} {op}"))
         return out
 
-    results["bitset_reduce_batch"] = run(
-        "bitset_reduce_batch",
+    # the engine's ragged fold: a contains wave's shape (1024 x 8 x 62,
+    # counts 1..8), the term wave's (4096 x 1), Q short of Qb, a T of 16 at
+    # W 61 (one-word loads), T 32 (the loop past the unrolled 16) at W 64,
+    # W 1, and counts of 0 and past T
+    fold = []
+    for i, (qb, t, w, n, op) in enumerate((
+            (1024, 8, 62, 1024, "and"), (1024, 8, 62, 1024, "or"),
+            (4096, 1, 62, 4096, "and"), (1024, 16, 61, 1000, "or"),
+            (8, 32, 64, 5, "and"), (8, 2, 1, 3, "or"))):
+        lens = fold_lens(np, 40 + i, n, t)
+        if n == 5:
+            lens[2:4] = (0, t + 8)
+        fold.append((u32_tensor(torch, np, planes_input(np, 10 + i, qb, t, w),
+                                dev), torch.from_numpy(lens).to(dev), op,
+                     f"Qb={qb} T={t} W={w} Q={n} {op}"))
+    results["bitset_reduce_batch"] = hold_fold(torch, fold, "synthetic", flush)
+    results["bitset_reduce_batch"]["batch_entry"] = run(
+        "bitset_reduce_batch (batch entry)",
         planes_cases([(1024, 8, 62, "and"), (1024, 8, 62, "or"),
                       (4096, 1, 62, "and"), (1000, 3, 61, "or"),
-                      (5, 8, 64, "and"), (3, 1, 1, "or")]),
+                      (5, 8, 64, "and"), (3, 1, 1, "or"), (7, 20, 62, "and")]),
         lambda p, op, _: bitset_reduce_batch(p, op=op),
         lambda p, op, _: bitset_reduce_batch_ref(p, op=op),
-        lambda p, op, _: nbytes(p) + 4 * p.shape[0] * (p.shape[2] + 1), 0)
+        lambda p, op, _: nbytes(p) + 4 * p.shape[0] * (p.shape[2] + 1), 0,
+        flush)
 
     single = [(p[0].contiguous(), op, s) for p, op, s in planes_cases(
         [(1, 8, 62, "and"), (1, 1, 62, "or"), (1, 3, 64, "and"),
@@ -536,17 +622,28 @@ def check_kernels(torch, np, dev) -> dict:
         lambda p, op, _: bitset_reduce_ref(p, op=op),
         lambda p, op, _: nbytes(p) + 4 * (p.shape[1] + 1), 0)
 
+    # the ragged extract: rows of every density (empty, sparse, full) at W
+    # 62 and 61, a small W, and a wave with no answer (total 0)
+    ragged = []
+    for i, (q, w) in enumerate(((1024, 62), (4096, 62), (1000, 61), (5, 3),
+                                (4, 40))):
+        bm = bitmaps_input(np, 20 + i, q, w)
+        if q == 4:
+            bm[:] = 0
+        ragged.append(extract_case(torch, np, bm, dev, f"Q={q} W={w}"))
+    results["bitmap_extract"] = hold_extract(torch, ragged, "synthetic",
+                                             flush)
     ext = []
     for i, (q, w, mh) in enumerate(((1024, 62, 2048), (4096, 62, 64),
                                     (1000, 61, 128), (5, 3, 8),
                                     (4, 40, 0))):
         bm = u32_tensor(torch, np, bitmaps_input(np, 20 + i, q, w), dev)
         ext.append((bm, mh, f"Q={q} W={w} max_hits={mh}"))
-    results["bitmap_extract"] = run(
-        "bitmap_extract", ext,
+    results["bitmap_extract"]["padded_entry"] = run(
+        "bitmap_extract (padded entry)", ext,
         lambda b, mh, _: bitmap_extract(b, max_hits=mh),
         lambda b, mh, _: bitmap_extract_ref(b, max_hits=mh),
-        lambda b, mh, _: nbytes(b) + 4 * b.shape[0] * (mh + 1), 0)
+        lambda b, mh, _: nbytes(b) + 4 * b.shape[0] * (mh + 1), 0, flush)
 
     # token_hash: the main shape is a real term matrix (rules 1-5 tokens of
     # generated log lines, packed to 64 bytes as the ingest path packs
@@ -591,6 +688,29 @@ def hold_token_hash(torch, cases, flush) -> dict:
         # lengths, the fingerprints
         lambda t, ln, _: (int(ln.clamp(0, t.shape[1]).sum()) + 8 * t.shape[0]),
         0, flush)
+
+
+def hold_fold(torch, cases, what, flush) -> dict:
+    """``hold`` for bitset_ops' ragged entry (planes, lens, op, label),
+    timed at ``cases[0]``, warm and cold."""
+    from repro_torch.kernels.bitset_ops.ops import bitset_reduce_ragged
+    from repro_torch.kernels.bitset_ops.ref import bitset_reduce_ragged_ref
+    return hold(torch, f"bitset_reduce_batch (ragged entry, {what})", cases,
+                lambda p, ln, op, _: bitset_reduce_ragged(p, ln, op=op),
+                lambda p, ln, op, _: bitset_reduce_ragged_ref(p, ln, op=op),
+                lambda p, ln, op, _: fold_bytes(p, ln), 0, flush)
+
+
+def hold_extract(torch, cases, what, flush) -> dict:
+    """``hold`` for bitmap_extract's ragged entry (bitmaps, offsets, total,
+    label), timed at ``cases[0]``, warm and cold."""
+    from repro_torch.kernels.bitmap_extract.ops import bitmap_extract_ragged
+    from repro_torch.kernels.bitmap_extract.ref import \
+        bitmap_extract_ragged_ref
+    return hold(torch, f"bitmap_extract (ragged entry, {what})", cases,
+                lambda b, o, n, _: (bitmap_extract_ragged(b, o, n),),
+                lambda b, o, n, _: (bitmap_extract_ragged_ref(b, o, n),),
+                extract_bytes, 0, flush)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1121,6 +1241,10 @@ def main_path(torch, np, dev, counters) -> dict:
     from repro_torch.core import batch_builder
     from repro_torch.core.tokenizer import (contains_query_tokens,
                                             term_query_tokens)
+    from repro_torch.kernels.bitmap_extract.ops import (bitmap_extract,
+                                                       bitmap_extract_ragged)
+    from repro_torch.kernels.bitset_ops.ops import (bitset_reduce_batch,
+                                                    bitset_reduce_ragged)
     from repro_torch.kernels.sketch_probe.ops import (match_planes,
                                                       mphf_probe_arrs)
     from repro_torch.logstore.datasets import (generate_dataset, id_queries,
@@ -1143,10 +1267,11 @@ def main_path(torch, np, dev, counters) -> dict:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # the (N, L) term matrix of every token_hash launch of the ingest, and
-    # every 64th matrix itself, and each wave's matrix (``stages``): phase
-    # 3's kernel is also timed at the median ingest launch and at the waves
+    # every 64th matrix itself, and each wave's matrix, fold inputs and
+    # extract inputs (``record``): phase 3's kernels are also timed at the
+    # median ingest launch and at the waves
     inner, launched, kept = batch_builder.token_matrix_fingerprints, [], []
-    wave_mats = {}
+    wave_mats, wave_folds, wave_extracts = {}, {}, {}
 
     def recording(mat, lengths, device):
         if len(launched) % 64 == 0:
@@ -1177,36 +1302,61 @@ def main_path(torch, np, dev, counters) -> dict:
 
     def wave(name, fn):
         before = {k: c.launch_count for k, c in counters.items()}
-        entries = (match_planes.launch_count, mphf_probe_arrs.launch_count)
+        entries = (match_planes, mphf_probe_arrs, bitset_reduce_ragged,
+                   bitmap_extract_ragged, bitset_reduce_batch, bitmap_extract)
+        at = [e.launch_count for e in entries]
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         cold = time.perf_counter() - t
+        first = [a.copy() for a in out]
         t = time.perf_counter()
         again = fn()
         torch.cuda.synchronize()
         warm = time.perf_counter() - t
-        require(all(np.array_equal(a, b) for a, b in zip(out, again)),
+        require(all(np.array_equal(a, b) for a, b in zip(first, again)),
                 f"{name}: a repeated wave answered differently")
+        require(all(np.array_equal(a, b) for a, b in zip(first, out)),
+                f"{name}: the next wave changed the first wave's answers")
         launches = {k: (c.launch_count - before[k]) // 2
                     for k, c in counters.items()}
-        fused = (match_planes.launch_count - entries[0]) // 2
+        fused, probe, fold, extract, fold_batch, extract_padded = (
+            (e.launch_count - a) // 2 for e, a in zip(entries, at))
         require(launches["token_hash"] == 1, f"{name}: token_hash launched "
                 f"{launches['token_hash']} times a wave, not once")
         require(fused == launches["sketch_probe"] == n_planes,
                 f"{name}: {fused} fused probes a wave for {n_planes} "
                 f"segments ({launches['sketch_probe']} sketch_probe "
                 f"launches in all)")
-        require(mphf_probe_arrs.launch_count == entries[1],
-                f"{name}: the wave launched the probe entry")
-        wall_ms, busy_ms = device_busy(torch, fn)
+        require(probe == 0, f"{name}: the wave launched the probe entry")
+        require(fold == launches["bitset_reduce_batch"] == 1
+                and fold_batch == 0, f"{name}: {fold} ragged folds a wave "
+                f"({launches['bitset_reduce_batch']} bitset_reduce_batch "
+                f"launches in all), not one")
+        require(extract == launches["bitmap_extract"] == 1
+                and extract_padded == 0, f"{name}: {extract} ragged "
+                f"extracts a wave ({launches['bitmap_extract']} "
+                f"bitmap_extract launches in all), not one")
+        trace = []
+        wall_ms, busy_ms = device_busy(torch, fn, trace)
+        probes = [i for i, k in enumerate(trace) if "match_kernel" in k]
+        folds = [i for i, k in enumerate(trace)
+                 if "bitset_reduce_kernel" in k]
+        require(len(probes) == n_planes and len(folds) == 1,
+                f"{name}: the profiler saw {len(probes)} probes and "
+                f"{len(folds)} folds in a wave: {trace}")
+        between = trace[probes[-1] + 1:folds[0]]
+        require(folds[0] == probes[-1] + 1, f"{name}: between the last "
+                f"probe and the fold the device ran {between}")
         waves[name] = dict(queries=len(out), cold_s=cold, warm_s=warm,
                            warm_qps=len(out) / warm, launches=launches,
-                           profiled_wall_ms=wall_ms, device_busy_ms=busy_ms)
+                           profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                           device_ops=len(trace))
         print(f"wave {name}: {len(out)} queries, cold {cold:.3f} s, warm "
               f"{warm:.4f} s = {len(out) / warm:.0f} q/s, launches per wave "
-              f"{launches}, device busy {busy_text(wall_ms, busy_ms)}",
-              flush=True)
+              f"{launches}, device busy {busy_text(wall_ms, busy_ms)}, "
+              f"{len(trace)} device kernels and copies, none between the "
+              f"last probe and the fold", flush=True)
         return out
 
     term_cands = wave("term", lambda: store.candidates_term_batch(terms))
@@ -1214,47 +1364,106 @@ def main_path(torch, np, dev, counters) -> dict:
                          lambda op=op: eng.query_batch(needle_toks, op=op))
                 for op in ("and", "or")}
 
-    def stages(name, token_lists, op):
-        """Host-clock split of one warm wave into the engine's stages; the
-        fingerprint stage's token_hash call alone (the matrix up, one
-        launch, the fingerprints back) is timed again after it, on the
-        wave's matrix as an untimed call before the split recorded it."""
+    def record(name, token_lists, op, matrix=True):
+        """One untimed wave through the engine's steps, keeping the
+        accumulator and token counts as the fold receives them, the bitmaps
+        and offsets as the extract receives them and, with ``matrix``, the
+        wave's token matrix."""
         def capture(mat, lengths, device):
-            wave_mats[name] = (mat.copy(), lengths.copy())
+            if matrix:
+                wave_mats[name] = (mat.copy(), lengths.copy())
             return inner(mat, lengths, device)
 
         batch_builder.token_matrix_fingerprints = capture
         try:
-            batch_builder.wave_fingerprints(token_lists, device=dev)
+            flat, lens = batch_builder.wave_fingerprints(token_lists,
+                                                         device=dev)
         finally:
             batch_builder.token_matrix_fingerprints = inner
+        live = np.flatnonzero(lens)
+        acc, lens_dev = eng._planes(eng._pack(flat, lens[live]), lens[live])
+        wave_folds[name] = (acc.clone(), lens_dev.clone(), op)
+        bitmaps, counts = eng._fold(acc, lens_dev, op)
+        _, ends, offsets = eng._offsets(counts, live, len(lens))
+        if offsets is not None:
+            wave_extracts[name] = (bitmaps.clone(), offsets.clone(),
+                                   int(ends[-1]))
+
+    def stages(name, token_lists, op):
+        """Host-clock split of one warm wave into the engine's steps, each
+        called in turn as ``_wave`` calls them, with the bytes its copies
+        bring to the host.  The fingerprint stage's token_hash call alone
+        (the matrix up, one launch, the fingerprints back) is timed again
+        after the split, on the matrix ``record`` kept."""
         t = [time.perf_counter()]
         flat, lens = batch_builder.wave_fingerprints(token_lists, device=dev)
         live = np.flatnonzero(lens)
         t.append(time.perf_counter())
-        fps, mask = eng._pack(flat, lens[live])
+        fps = eng._pack(flat, lens[live])
         t.append(time.perf_counter())
-        bitmaps, counts = eng._evaluate(fps, mask, op)
+        bitmaps, counts = eng._fold(*eng._planes(fps, lens[live]), op)
         t.append(time.perf_counter())
-        eng._extract(bitmaps, counts[:live.size])
-        torch.cuda.synchronize()
+        # the extract stage's steps: the offsets (prefix sums and their
+        # upload), the launch and the ids' copy to the host, then the int64
+        # copy and the queries' views
+        starts, ends, offsets = eng._offsets(counts, live, len(lens))
         t.append(time.perf_counter())
+        total = int(ends[-1])
+        ids = (eng._ids(bitmaps, offsets, total) if total
+               else np.empty(0, np.int32))
+        t.append(time.perf_counter())
+        ids64 = ids.astype(np.int64)
+        answers = [ids64[a:b] for a, b in zip(starts.tolist(),
+                                              ends.tolist())]
+        t.append(time.perf_counter())
+        require(len(answers) == len(token_lists), f"{name}: stage split "
+                f"answered {len(answers)} of {len(token_lists)} queries")
         ms = [1e3 * (b - a) for a, b in zip(t, t[1:])]
+        t0 = time.perf_counter()            # the ids' int64 copy alone
+        ids.astype(np.int64)
+        int64_ms = 1e3 * (time.perf_counter() - t0)
         mat, lengths = wave_mats[name]
         t0 = time.perf_counter()
         inner(mat, lengths, dev)
         hash_ms = 1e3 * (time.perf_counter() - t0)
-        waves[name]["stages_ms"] = dict(zip(
-            ("fingerprint", "pack", "probe_fold", "extract"), ms),
-            fingerprint_token_hash_call=hash_ms)
+        copied = counts.nbytes + ids.nbytes
+        limit = 4 * (total + live.size + 1)
+        require(copied <= limit, f"{name}: the fold and extract copied "
+                f"{copied} bytes to the host, past 4 (total + Q + 1) = "
+                f"{limit}")
+        # what the padded (Qb, max_hits) transfer of the previous engine
+        # would copy for the same answers
+        padded = 4 * fps.shape[0] * (1 << (max(int(counts.max()), 8) - 1)
+                                     .bit_length()) + 4 * fps.shape[0]
+        waves[name]["stages_ms"] = dict(
+            fingerprint=ms[0], pack=ms[1], probe_fold=ms[2],
+            extract=sum(ms[3:]), fingerprint_token_hash_call=hash_ms,
+            extract_offsets=ms[3], extract_launch_copy=ms[4],
+            extract_int64_views=ms[5], extract_int64_alone=int64_ms)
+        waves[name]["d2h_bytes"] = dict(
+            fingerprints=int(flat.nbytes), counts=int(counts.nbytes),
+            ids=int(ids.nbytes), answer_ids=total, live=int(live.size),
+            max_count=int(counts.max()), qb_tb=list(fps.shape),
+            padded_transfer=padded)
         print(f"wave {name} stages (host clock): fingerprint {ms[0]:.2f} ms "
               f"(of it the token_hash call {hash_ms:.2f} ms), pack "
               f"{ms[1]:.2f} ms, probe+fold {ms[2]:.2f} ms, extract "
-              f"{ms[3]:.2f} ms", flush=True)
+              f"{sum(ms[3:]):.2f} ms (offsets {ms[3]:.2f}, launch and copy "
+              f"{ms[4]:.2f}, int64 copy and views {ms[5]:.2f}, the int64 "
+              f"copy timed again alone {int64_ms:.2f}); device-to-host "
+              f"bytes: fingerprints {flat.nbytes}, counts {counts.nbytes}, "
+              f"ids {ids.nbytes} ({total} ids, at most {int(counts.max())} "
+              f"a query, {live.size} live queries, Qb x Tb {fps.shape}; a "
+              f"padded (Qb, max_hits) id matrix would be {padded})",
+              flush=True)
         return fps
 
-    term_fps = stages("term", [term_query_tokens(t) for t in terms], "and")
-    stages("contains_and", needle_toks, "and")     # the OR wave's tokens too
+    term_lists = [term_query_tokens(t) for t in terms]
+    record("term", term_lists, "and")
+    record("contains_and", needle_toks, "and")
+    record("contains_or", needle_toks, "or", matrix=False)  # the same tokens
+    term_fps = stages("term", term_lists, "and")
+    stages("contains_and", needle_toks, "and")
     launches = read(counters)
     # ------------------------------------------------------------ checks
     segs = store.segments
@@ -1314,7 +1523,8 @@ def main_path(torch, np, dev, counters) -> dict:
     return dict(launches=launches, waves=waves, ingest_s=ingest_s,
                 ds=ds, terms=terms, needles=needles, needle_toks=needle_toks,
                 store=store, scan=scan, truth=truth, token_launch=token_launch,
-                wave_mats=wave_mats, fused_case=fused_case)
+                wave_mats=wave_mats, wave_folds=wave_folds,
+                wave_extracts=wave_extracts, fused_case=fused_case)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1597,12 +1807,7 @@ def main() -> int:
               "script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import (bitmap_extract, bitset_reduce,
-                                     bitset_reduce_batch, build,
-                                     csc_partition_mask, embedding_bag_sum,
-                                     flash_decode, match_planes,
-                                     mphf_probe_arrs, retrieval_scores,
-                                     token_fingerprints)
+    from repro_torch.kernels import build
     # the plain versions' f32 products in full f32, as the JAX package's
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1623,15 +1828,7 @@ def main() -> int:
 
     kernels = check_kernels(torch, np, dev)
     kernels.update(check_model_kernels(torch, dev))
-    counters = {"sketch_probe": LaunchSum(mphf_probe_arrs, match_planes),
-                "bitset_reduce_batch": bitset_reduce_batch,
-                "bitset_reduce": bitset_reduce,
-                "bitmap_extract": bitmap_extract,
-                "token_hash": token_fingerprints,
-                "csc_probe": csc_partition_mask,
-                "retrieval_score": retrieval_scores,
-                "embedding_bag": embedding_bag_sum,
-                "flash_decode": flash_decode}
+    counters = launch_counters()
     paths = {}
     seg = main_path(torch, np, dev, counters)
     seg_summary = dict(ingest_s=seg["ingest_s"], waves=seg["waves"])
@@ -1650,6 +1847,18 @@ def main() -> int:
         for name, (m, ln) in seg.pop("wave_mats").items()}
     kernels["sketch_probe"]["at_launch"] = hold_fused(
         torch, np, [seg.pop("fused_case")], flush)
+    kernels["bitset_reduce_batch"]["at_waves"] = {
+        name: hold_fold(torch, [(*case, f"{name} wave Qb x Tb x W "
+                                 f"{tuple(case[0].shape)} "
+                                 f"Q={case[1].numel()}")],
+                        f"{name} wave", flush)
+        for name, case in seg.pop("wave_folds").items()}
+    kernels["bitmap_extract"]["at_waves"] = {
+        name: hold_extract(torch, [(*case, f"{name} wave Q x W "
+                                    f"{tuple(case[0].shape)} "
+                                    f"total={case[2]}")],
+                           f"{name} wave", flush)
+        for name, case in seg.pop("wave_extracts").items()}
     paths["segmented"] = seg["launches"]
     for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
                  "token_hash"):
@@ -1711,7 +1920,8 @@ def main() -> int:
                  shape=k["shape"],
                  **{key: k[key] for key in ("cold_ms", "library_cold_ms",
                                             "at_launch", "at_waves",
-                                            "probe_entry") if key in k})
+                                            "probe_entry", "batch_entry",
+                                            "padded_entry") if key in k})
             for name, k in kernels.items()]
     total_s = time.perf_counter() - t_start
     print(json.dumps(dict(card=card, total_s=total_s,

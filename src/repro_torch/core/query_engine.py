@@ -13,7 +13,8 @@ one extraction per wave:
     packed into padded (Q_bucket, T_bucket) arrays (powers of two).  Each
     segment's probe (MPHF, signature, CSF rank, plane-row OR) is one launch
     of the CUDA ``sketch_probe`` kernel's fused entry, and the T-axis
-    boolean fold one of the CUDA ``bitset_ops`` kernel.
+    boolean fold of the live queries, each over its own token count, one
+    of the CUDA ``bitset_ops`` kernel's ragged entry.
   * **Multi-segment fan-out** — per-spill immutable segments stay
     queryable (no monolithic merge): each segment contributes per-token
     posting bitmaps, OR-ed across segments before the AND/OR fold.  A
@@ -22,35 +23,51 @@ one extraction per wave:
   * **Host fallback** — segments built without bitmap planes (plane
     budget exceeded) are probed on the host, with an LRU cache of decoded
     BIC posting lists, and their bitmaps OR-ed into the wave.
-  * **Device candidate extraction** — the combined hit bitmaps compact
-    into posting-id lists on the device (CUDA ``bitmap_extract`` kernel),
-    so only a (Q, max_hits) id tensor crosses to the host.
+  * **Device candidate extraction** — the fold writes only the live
+    queries' bitmaps and counts; the counts cross to the host, their
+    prefix sums go back up as row offsets, and the combined hit bitmaps
+    compact on the device (CUDA ``bitmap_extract`` kernel's ragged entry)
+    into one id array of exactly the wave's answer size, which crosses to
+    the host once (into pinned memory) and is cut into the queries'
+    arrays as views of one fresh int64 array.
 
 On a CPU device every kernel wrapper takes its plain PyTorch version.
-Semantics match the host Alg. 3 loop exactly: an absent token zeroes its
-bitmap (AND -> empty), an empty query returns empty.
+Threads may run waves on one engine at once: each copy to the host takes
+its own pinned buffer from PyTorch's caching host allocator, and the LRU
+takes a lock.  Semantics match the host Alg. 3 loop exactly: an absent
+token zeroes its bitmap (AND -> empty), an empty query returns empty.
 """
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.bitmap_extract.ops import bitmap_extract
-from ..kernels.bitset_ops.ops import bitset_reduce_batch
+from ..kernels.bitmap_extract.ops import bitmap_extract_ragged
+from ..kernels.bitset_ops.ops import bitset_reduce_ragged
 from .batch_builder import wave_fingerprints
 from .hashing import token_fingerprint
 
 _MIN_Q_BUCKET = 8
 _MIN_T_BUCKET = 1
-_MIN_HITS_BUCKET = 8
 
 
 def _bucket(n: int, lo: int) -> int:
     """Next power of two >= max(n, lo)."""
     return 1 << (max(n, lo) - 1).bit_length()
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A 1-D int32 tensor as a host array.  From the card it is copied
+    into a pinned buffer of its own, which lives as long as the array."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    out = torch.empty(t.numel(), dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out.numpy()
 
 
 def _as_fp(tok) -> int:
@@ -77,6 +94,7 @@ class QueryEngine:
                            if s.planes is None]
         self._lru: OrderedDict[tuple, np.ndarray] = OrderedDict()
         self._lru_cap = lru_lists
+        self._lru_lock = threading.Lock()
         self.upload_count = 0       # segment device-cache uploads
 
     # ------------------------------------------------------------- public
@@ -111,52 +129,56 @@ class QueryEngine:
             raise ValueError(f"op={op!r}")
         n_queries = len(lens)
         # empty queries resolve to empty immediately (Alg. 3 semantics)
-        results: list = [np.empty(0, np.int64)] * n_queries
         live = np.flatnonzero(lens)
         if not live.size or not self.segments or self.n_postings == 0:
             return [np.empty(0, np.int64) for _ in range(n_queries)]
-
-        fps_pad, mask = self._pack(flat, lens[live])
-        bitmaps, counts = self._evaluate(fps_pad, mask, op)
-        postings = self._extract(bitmaps, counts[:live.size])
-        for out, i in zip(postings, live):
-            results[int(i)] = out
-        return results
+        fps = self._pack(flat, lens[live])
+        bitmaps, counts = self._fold(*self._planes(fps, lens[live]), op)
+        return self._extract(bitmaps, counts, live, n_queries)
 
     # ------------------------------------------------------------ packing
-    def _pack(self, flat: np.ndarray, lens: np.ndarray):
+    def _pack(self, flat: np.ndarray, lens: np.ndarray) -> np.ndarray:
         """The live queries' fingerprints (``flat``, query after query,
-        ``lens`` each) -> padded (Qb, Tb) fingerprints and mask."""
+        ``lens`` each) -> padded (Qb, Tb) fingerprints, query i in row i."""
         tb = _bucket(int(lens.max()), _MIN_T_BUCKET)
         qb = _bucket(lens.size, _MIN_Q_BUCKET)
         fps = np.zeros((qb, tb), dtype=np.uint32)
-        mask = np.zeros((qb, tb), dtype=bool)
         rows = np.repeat(np.arange(lens.size), lens)
         cols = np.arange(flat.size) - np.repeat(np.cumsum(lens) - lens, lens)
         fps[rows, cols] = flat
-        mask[rows, cols] = True
-        return fps, mask
+        return fps
 
     # --------------------------------------------------------- evaluation
-    def _evaluate(self, fps: np.ndarray, mask: np.ndarray, op: str):
-        """(Qb, Tb) wave -> ((Qb, W) device int32 bitmaps, (Qb,) counts).
+    def _planes(self, fps: np.ndarray, lens: np.ndarray):
+        """(Qb, Tb) wave and the live queries' token counts -> ((Qb, Tb, W)
+        device int32 token planes, (Q,) device int32 counts).
 
-        Per-token plane accumulation over the plane-backed segments, an OR
-        of any host-fallback contribution, then one fold over the T axis.
-        The combined bitmaps STAY on the device for the extraction stage;
-        only the per-query counts come back here."""
-        fps_dev = torch.from_numpy(fps.view(np.int32)).to(self.device)
-        acc = self._device_token_planes(fps_dev)
-        for si, seg in self._host_segs:
-            acc |= torch.from_numpy(
-                self._host_token_planes(si, seg, fps, mask).view(np.int32)
-            ).to(self.device)
-        # masked pad slots take the fold's neutral word
-        neutral = -1 if op == "and" else 0
-        mask_dev = torch.from_numpy(mask).to(self.device)
-        planes = torch.where(mask_dev[:, :, None], acc, neutral)
-        combined, counts = bitset_reduce_batch(planes, op=op)
-        return combined, counts.cpu().numpy()
+        The fingerprints and counts go up in one copy; per-token plane
+        accumulation over the plane-backed segments, then an OR of any
+        host-fallback contribution.  Pad slots and pad rows are left as
+        they are: the fold never reads them."""
+        qb, tb = fps.shape
+        staged = np.empty(qb * tb + lens.size, dtype=np.int32)
+        staged[:qb * tb] = fps.reshape(-1).view(np.int32)
+        staged[qb * tb:] = lens
+        up = torch.from_numpy(staged).to(self.device)
+        acc = self._device_token_planes(up[:qb * tb].view(qb, tb))
+        if self._host_segs:
+            mask = np.zeros((qb, tb), dtype=bool)
+            mask[:lens.size] = np.arange(tb) < lens[:, None]
+            for si, seg in self._host_segs:
+                acc |= torch.from_numpy(
+                    self._host_token_planes(si, seg, fps, mask)
+                    .view(np.int32)).to(self.device)
+        return acc, up[qb * tb:]
+
+    @staticmethod
+    def _fold(acc: torch.Tensor, lens: torch.Tensor, op: str):
+        """One fold of each live row over its own tokens -> ((Q, W) device
+        int32 bitmaps, (Q,) host int32 counts).  The bitmaps STAY on the
+        device for the extraction; only the counts come back."""
+        combined, counts = bitset_reduce_ragged(acc, lens, op=op)
+        return combined, _to_host(counts)
 
     def _device_token_planes(self, fps_dev: torch.Tensor) -> torch.Tensor:
         """(Qb, Tb) device fps -> (Qb, Tb, W) int32 token planes OR-ed over
@@ -200,35 +222,51 @@ class QueryEngine:
 
     def _cached_postings(self, si: int, seg, rank: int) -> np.ndarray:
         key = (si, rank)
-        hit = self._lru.get(key)
-        if hit is not None:
-            self._lru.move_to_end(key)
-            return hit
+        with self._lru_lock:
+            hit = self._lru.get(key)
+            if hit is not None:
+                self._lru.move_to_end(key)
+                return hit
         postings = seg.postings_for_rank(rank)
-        self._lru[key] = postings
-        if len(self._lru) > self._lru_cap:
-            self._lru.popitem(last=False)
+        with self._lru_lock:
+            self._lru[key] = postings
+            if len(self._lru) > self._lru_cap:
+                self._lru.popitem(last=False)
         return postings
 
     # --------------------------------------------------------- extraction
-    def _extract(self, bitmaps: torch.Tensor, counts: np.ndarray
-                 ) -> list[np.ndarray]:
-        """Bitmap -> posting-id compaction for a whole wave on the device;
-        one (Qb, max_hits) id tensor crosses to the host.  ``counts`` covers
-        only the live rows, and ``max_hits`` is sized from them: pad rows
-        (all-ones under AND) are compacted too, and the kernel drops their
-        hits past ``max_hits``."""
-        n = len(counts)
-        out: list[np.ndarray] = [np.empty(0, np.int64)] * n
-        nz = np.flatnonzero(counts > 0)
-        if nz.size == 0:
-            return out
-        max_hits = _bucket(int(counts.max()), _MIN_HITS_BUCKET)
-        ids, _ = bitmap_extract(bitmaps, max_hits=max_hits)
-        ids = ids.cpu().numpy()
-        for i in nz:
-            out[int(i)] = ids[int(i), :int(counts[int(i)])].astype(np.int64)
-        return out
+    def _extract(self, bitmaps: torch.Tensor, counts: np.ndarray,
+                 live: np.ndarray, n_queries: int) -> list[np.ndarray]:
+        """Bitmap -> posting-id compaction for a whole wave on the device.
+        ``bitmaps`` and ``counts`` are the live queries' (query ``live[i]``
+        in row i).  Their prefix sums place each row's ids in one array of
+        exactly the wave's answer size, which crosses to the host once; each
+        query's answer is a view of one fresh int64 copy of it."""
+        starts, ends, offsets = self._offsets(counts, live, n_queries)
+        if offsets is None:
+            return [np.empty(0, np.int64) for _ in range(n_queries)]
+        flat = self._ids(bitmaps, offsets, int(ends[-1])).astype(np.int64)
+        return [flat[a:b] for a, b in zip(starts.tolist(), ends.tolist())]
+
+    def _offsets(self, counts: np.ndarray, live: np.ndarray, n_queries: int):
+        """-> (starts, ends) of every query's answer in the wave's id array
+        and the live rows' starts on the device (None when the wave has no
+        answer)."""
+        per_query = np.zeros(n_queries, dtype=np.int64)
+        per_query[live] = counts
+        ends = np.cumsum(per_query)
+        starts = ends - per_query
+        if ends[-1] == 0:
+            return starts, ends, None
+        return starts, ends, torch.from_numpy(
+            starts[live].astype(np.int32)).to(self.device)
+
+    @staticmethod
+    def _ids(bitmaps: torch.Tensor, offsets: torch.Tensor, total: int
+             ) -> np.ndarray:
+        """The wave's (total,) int32 ids, compacted on the device and
+        copied to the host once."""
+        return _to_host(bitmap_extract_ragged(bitmaps, offsets, total))
 
     # ------------------------------------------------------------ replicas
     def clone(self) -> "QueryEngine":

@@ -26,3 +26,20 @@ def bitmap_extract_ref(bitmaps: torch.Tensor, *, max_hits: int
                      device=bitmaps.device)
     ids.scatter_(1, col, torch.where(keep, pos, -1))
     return ids[:, :max_hits].to(torch.int32), bits.sum(dim=1).to(torch.int32)
+
+
+def bitmap_extract_ragged_ref(bitmaps: torch.Tensor, offsets: torch.Tensor,
+                              total: int) -> torch.Tensor:
+    """(Q, W) hit bitmaps, (Q,) row offsets, total -> (total,) int32: every
+    row's set-bit positions, ascending, the rows one after another (each
+    row of ``bitmap_extract_ref`` cut at its count, concatenated).  Raises
+    unless ``offsets`` are the exclusive prefix sums of the rows' counts
+    and ``total`` their sum."""
+    q, w = bitmaps.shape
+    lanes = torch.arange(32, device=bitmaps.device)
+    bits = ((as_u32(bitmaps)[:, :, None] >> lanes) & 1).reshape(q, w * 32)
+    counts = bits.sum(dim=1)
+    if (int(counts.sum()) != total or not torch.equal(
+            offsets.to(torch.int64), torch.cumsum(counts, 0) - counts)):
+        raise ValueError("offsets and total are not the rows' prefix sums")
+    return torch.nonzero(bits)[:, 1].to(torch.int32)

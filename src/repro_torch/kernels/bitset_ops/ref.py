@@ -23,3 +23,16 @@ def bitset_reduce_ref(planes: torch.Tensor, *, op: str = "and"
     """(T, W) -> ((W,) combined, () int32 popcount)."""
     combined, counts = bitset_reduce_batch_ref(planes[None], op=op)
     return combined[0], counts[0]
+
+
+def bitset_reduce_ragged_ref(planes: torch.Tensor, lens: torch.Tensor, *,
+                             op: str = "and"
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Qb, T, W) planes, (Q,) token counts -> ((Q, W), (Q,)): the first Q
+    rows, each slot past its row's count set to the fold's neutral word
+    (as the reference engine's ``jnp.where`` of the pad slots), folded."""
+    q, t = lens.shape[0], planes.shape[1]
+    mask = torch.arange(t, device=planes.device) < lens[:, None]
+    neutral = -1 if op == "and" else 0
+    return bitset_reduce_batch_ref(
+        torch.where(mask[:, :, None], planes[:q], neutral), op=op)

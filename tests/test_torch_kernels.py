@@ -22,10 +22,15 @@ from repro_torch.core import mphf as port_mphf
 from repro_torch.core.batch_builder import LineFingerprinter, build_sealed
 from repro_torch.core.hashing import np_seeded_hash32, np_token_fingerprints
 from repro_torch.core.immutable_sketch import build_immutable
-from repro_torch.kernels.bitmap_extract.ops import bitmap_extract
-from repro_torch.kernels.bitmap_extract.ref import bitmap_extract_ref
-from repro_torch.kernels.bitset_ops.ops import bitset_reduce, bitset_reduce_batch
-from repro_torch.kernels.bitset_ops.ref import bitset_reduce_batch_ref
+from repro_torch.kernels.bitmap_extract.ops import (bitmap_extract,
+                                                   bitmap_extract_ragged)
+from repro_torch.kernels.bitmap_extract.ref import (bitmap_extract_ragged_ref,
+                                                   bitmap_extract_ref)
+from repro_torch.kernels.bitset_ops.ops import (bitset_reduce,
+                                               bitset_reduce_batch,
+                                               bitset_reduce_ragged)
+from repro_torch.kernels.bitset_ops.ref import (bitset_reduce_batch_ref,
+                                               bitset_reduce_ragged_ref)
 from repro_torch.kernels.csc_probe.ops import csc_partition_mask, host_seeds
 from repro_torch.kernels.csc_probe.ref import csc_probe_ref
 from repro_torch.kernels.embedding_bag.ops import embedding_bag_sum
@@ -325,6 +330,103 @@ def test_bitmap_extract_plain_matches_pallas_and_jnp(jx, q, w, max_hits):
         np.testing.assert_array_equal(counts.numpy(), np.asarray(j_n))
     if max_hits < 32 * w:
         assert (counts.numpy() > max_hits).any(), "case must overflow a row"
+
+
+# ------------------------------------------- the query engine's entries
+# (Qb, Tb, W, lens of the live rows): the 1M-line store's W 62 at the term
+# wave's T 1 and a contains wave's T 8, an odd W, a T past the unrolled 16
+# and one that is no power of two; live counts short of Qb, rows of every
+# length from 1 to Tb, a row with no plane (the neutral word) and one whose
+# count is past Tb (clamped)
+RAGGED_FOLD_CASES = [(8, 1, 62, [1] * 5), (16, 8, 62, [1, 8, 3, 5, 2, 7, 8]),
+                     (8, 4, 7, [4, 1, 2, 3, 4, 1]), (4, 32, 33, [32, 17, 1]),
+                     (8, 3, 64, [3, 0, 2, 9, 1]), (8, 2, 1, [2, 1, 2])]
+
+
+def _ragged_lens(lens):
+    return torch.tensor(lens, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("qb,t,w,lens", RAGGED_FOLD_CASES)
+@pytest.mark.parametrize("op", ["and", "or"])
+def test_bitset_reduce_ragged_plain_matches_reference_where_and_fold(
+        jx, qb, t, w, lens, op):
+    """The engine's fold of each live row over its own tokens equals the
+    JAX engine's ``_reduce_fn`` body (``jnp.where`` of the pad slots to the
+    neutral word, then the fold, here by the Pallas kernel and its jnp
+    oracle) on the live rows."""
+    jnp = jx.jnp
+    p = _planes(qb * 10 + t + w, qb, t, w)
+    combined, counts = bitset_reduce_ragged(_i32(p), _ragged_lens(lens),
+                                            op=op)
+    n = len(lens)
+    assert combined.shape == (n, w) and counts.shape == (n,)
+    assert counts.dtype == torch.int32
+    mask = np.arange(t)[None, :] < np.asarray(lens)[:, None]
+    neutral = jnp.uint32(0xFFFFFFFF if op == "and" else 0)
+    planes = jnp.where(jnp.asarray(mask)[:, :, None], jnp.asarray(p[:n]),
+                       neutral)
+    for fold in (jx.reduce_batch, jx.reduce_batch_ref):
+        j_c, j_n = fold(planes, op=op)
+        np.testing.assert_array_equal(_u32(combined), np.asarray(j_c))
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(j_n))
+
+
+# (Q, W, rows forced empty, rows forced full): W 62 and odd widths; empty
+# and full rows; a wave whose rows are all empty (total 0)
+RAGGED_EXTRACT_CASES = [(16, 62, (0, 5), (1,)), (7, 61, (3,), ()),
+                        (5, 3, (), (0, 4)), (9, 1, (0, 1, 2), (8,)),
+                        (4, 40, (0, 1, 2, 3), ())]
+
+
+def _ragged_bitmaps(q, w, empty, full):
+    bm = _bitmaps(q * 7 + w, q, w)
+    bm[list(empty)] = 0
+    bm[list(full)] = 0xFFFFFFFF
+    counts = np.unpackbits(bm.view(np.uint8), axis=1).sum(axis=1)
+    ends = np.cumsum(counts)
+    return bm, counts, (ends - counts).astype(np.int32), int(ends[-1])
+
+
+@pytest.mark.parametrize("q,w,empty,full", RAGGED_EXTRACT_CASES)
+def test_bitmap_extract_ragged_plain_matches_reference_rows_cut(
+        jx, q, w, empty, full):
+    """One compacted id array equals the JAX ``bitmap_extract_ref`` rows
+    (max_hits = every bit) cut at their counts and concatenated."""
+    bm, counts, offsets, total = _ragged_bitmaps(q, w, empty, full)
+    ids = bitmap_extract_ragged(_i32(bm), torch.from_numpy(offsets), total)
+    assert ids.shape == (total,) and ids.dtype == torch.int32
+    j_ids, j_n = jx.extract_ref(jx.jnp.asarray(bm), max_hits=32 * w)
+    j_ids, j_n = np.asarray(j_ids), np.asarray(j_n)
+    np.testing.assert_array_equal(j_n, counts)
+    want = np.concatenate([j_ids[i, :j_n[i]] for i in range(q)])
+    np.testing.assert_array_equal(ids.numpy(), want)
+    assert (total == 0) == (len(empty) == q)
+
+
+def test_engine_entries_reject_bad_inputs():
+    p = torch.zeros((4, 2, 3), dtype=torch.int32)
+    for lens in (torch.zeros(5, dtype=torch.int32),        # more than Qb
+                 torch.zeros(2, dtype=torch.int64),
+                 torch.zeros((2, 1), dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            bitset_reduce_ragged(p, lens)
+    with pytest.raises(ValueError):
+        bitset_reduce_ragged(p, torch.zeros(2, dtype=torch.int32), op="xor")
+    bm = _i32(np.full((3, 2), 1, np.uint32))     # one bit a word: 2 a row
+    for offsets, total in ((torch.tensor([0, 2], dtype=torch.int32), 6),
+                           (torch.tensor([0, 2, 4], dtype=torch.int64), 6),
+                           (torch.tensor([0, 2, 4], dtype=torch.int32), -1)):
+        with pytest.raises(ValueError):
+            bitmap_extract_ragged(bm, offsets, total)
+    # offsets and total that are not the rows' prefix sums
+    for offsets, total in (([0, 2, 4], 5), ([0, 1, 4], 6)):
+        with pytest.raises(ValueError):
+            bitmap_extract_ragged(bm, torch.tensor(offsets, dtype=torch.int32),
+                                  total)
+    assert bitmap_extract_ragged(bm, torch.tensor([0, 2, 4],
+                                                  dtype=torch.int32),
+                                 6).tolist() == [0, 32, 0, 32, 0, 32]
 
 
 # ------------------------------------------------ model-serving kernels
@@ -645,6 +747,57 @@ def test_cuda_bitmap_extract_matches_plain(cuda, q, w, max_hits):
     ids, counts = bitmap_extract(bm, max_hits=max_hits)
     r_ids, r_n = bitmap_extract_ref(bm, max_hits=max_hits)
     assert torch.equal(ids, r_ids) and torch.equal(counts, r_n)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("qb,t,w,lens", RAGGED_FOLD_CASES + [
+    (4096, 1, 62, [1] * 4096), (1024, 8, 62, [3, 8, 5, 4, 6, 7] * 170),
+    (2048, 16, 62, list(range(1, 17)) * 93), (512, 64, 61, [64, 1, 40] * 100),
+    (4096, 2, 64, [2, 1] * 1500)])
+@pytest.mark.parametrize("op", ["and", "or"])
+def test_cuda_bitset_reduce_ragged_matches_plain(cuda, qb, t, w, lens, op):
+    """The term wave (4096 x 1 x 62), a contains wave (1024 x 8 x 62), the
+    unrolled 16 and the loop past it, 4-, 2- and 1-word loads."""
+    p = _i32(_planes(qb + t + w, qb, t, w)).to(cuda)
+    ln = _ragged_lens(lens).to(cuda)
+    before = bitset_reduce_ragged.launch_count
+    combined, counts = bitset_reduce_ragged(p, ln, op=op)
+    torch.cuda.synchronize()
+    assert bitset_reduce_ragged.launch_count == before + 1
+    r_c, r_n = bitset_reduce_ragged_ref(p, ln, op=op)
+    assert torch.equal(combined, r_c) and torch.equal(counts, r_n)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("q,w,empty,full", RAGGED_EXTRACT_CASES + [
+    (4096, 62, tuple(range(0, 4096, 3)), (7,)), (1024, 62, (), (0, 9)),
+    (1000, 61, (), ())])
+def test_cuda_bitmap_extract_ragged_matches_plain(cuda, q, w, empty, full):
+    bm, _, offsets, total = _ragged_bitmaps(q, w, empty, full)
+    b, off = _i32(bm).to(cuda), torch.from_numpy(offsets).to(cuda)
+    before = bitmap_extract_ragged.launch_count
+    ids = bitmap_extract_ragged(b, off, total)
+    torch.cuda.synchronize()
+    assert bitmap_extract_ragged.launch_count == before + (total > 0)
+    assert torch.equal(ids, bitmap_extract_ragged_ref(b, off, total))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_bitmap_extract_ragged_writes_only_inside_total(cuda):
+    """Offsets that are not the rows' prefix sums move ids but never past
+    ``total``: a guard word after the array stays as it was."""
+    bm = _i32(np.full((4, 3), 0xFFFFFFFF, np.uint32)).to(cuda)  # 96 a row
+    buf = torch.full((101,), -7, dtype=torch.int32, device=cuda)
+    from repro_torch.kernels.bitmap_extract.ops import _kernel
+    _, _, fn = _kernel()
+    off = torch.tensor([0, 50, 60, 90], dtype=torch.int32, device=cuda)
+    assert fn(bm.data_ptr(), 4, 3, off.data_ptr(), 100, buf.data_ptr(),
+              torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    got = buf.cpu().numpy()
+    assert got[100] == -7
+    np.testing.assert_array_equal(got[:50], np.arange(50))
+    np.testing.assert_array_equal(got[90:100], np.arange(10))
 
 
 @pytest.mark.requires_cuda

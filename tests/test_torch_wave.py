@@ -6,9 +6,17 @@ the wave's accumulator).  Inputs come from numpy seeds; the JAX package's
 Pallas kernels run in interpret mode, as its own tests run them.  Integer
 data throughout: the tolerance is exact equality.
 
-The ``requires_cuda`` cases hold both kernels against their plain versions
+The wave's fold and extraction (``bitset_ops``' and ``bitmap_extract``'s
+ragged entries: each live query folded over its own tokens, the answer
+compacted into one id array) are held through the engine: pad rows, queries
+of different token counts, host-fallback segments, empty and answerless
+waves, and answers that outlive the next wave.
+
+The ``requires_cuda`` cases hold the kernels against their plain versions
 on the card, at the launched shapes and edges; they skip where there is no
 GPU."""
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +26,10 @@ from repro_torch.core import immutable_sketch as port_sk
 from repro_torch.core.batch_builder import wave_fingerprints
 from repro_torch.core.hashing import np_token_fingerprints, token_fingerprint
 from repro_torch.core.query_engine import QueryEngine
+from repro_torch.kernels.bitmap_extract.ops import (bitmap_extract,
+                                                   bitmap_extract_ragged)
+from repro_torch.kernels.bitset_ops.ops import (bitset_reduce_batch,
+                                               bitset_reduce_ragged)
 from repro_torch.kernels.sketch_probe.ops import match_planes, mphf_probe_arrs
 from repro_torch.kernels.sketch_probe.ref import (match_planes_ref,
                                                   sketch_probe_ref)
@@ -157,6 +169,138 @@ def test_query_batch_with_raw_long_tokens_matches_reference_engine(op):
         np.testing.assert_array_equal(g, eng.host_query(toks, op=op))
     assert all(len(g) for g in got[:3]), "a long token found no posting"
     assert len(got[6]) == 0, "a 64-byte cut of a long token matched"
+
+
+# ---------------------------------------------- fold and extraction
+def _engines(seed, host_fallback=False, ref=True):
+    """Three segments built by the port (the last without bitmap planes
+    when ``host_fallback``: probed on the host), the JAX engine over the
+    same segments built by the JAX package (with ``ref``; else None), and
+    a wave of 45 queries: 38 live (not a power of two), 7 empty, 1 to 6
+    tokens each, present fingerprints, absent ones and byte tokens
+    mixed."""
+    words = [b"alpha", b"beta", "gamma-\u00e9".encode(), b"x" * 80]
+    rng, fps, posts = _corpus(seed, words, n_postings=200)
+    cuts = (0, fps.size // 3, 2 * fps.size // 3, fps.size)
+    kws = [{"plane_budget_bytes": 0} if host_fallback and i == 2 else {}
+           for i in range(3)]
+    segs = [port_sk.build_immutable(
+        port_bb.build_sealed(fps[lo:hi], posts[lo:hi]), **kw)
+        for lo, hi, kw in zip(cuts, cuts[1:], kws)]
+    assert (segs[2].planes is None) == host_fallback
+    eng_ref = None
+    if ref:
+        from repro.core import batch_builder as ref_bb
+        from repro.core import immutable_sketch as ref_sk
+        from repro.core.query_engine import QueryEngine as RefEngine
+        eng_ref = RefEngine([ref_sk.build_immutable(
+            ref_bb.build_sealed(fps[lo:hi], posts[lo:hi]), **kw)
+            for lo, hi, kw in zip(cuts, cuts[1:], kws)])
+    wave = []
+    for i in range(45):
+        if i % 6 == 5:
+            wave.append([])
+            continue
+        # tokens that share a posting, so that most AND answers are not empty
+        near = np.unique(fps[posts == rng.integers(0, 200)])
+        toks = [int(x) for x in rng.choice(near, 1 + i % 6)]
+        if i % 4 == 1:
+            toks[-1] = words[i % len(words)]
+        if i % 9 == 2:
+            toks.append(int(rng.integers(0, 2**32)))      # absent
+        wave.append(toks)
+    return segs, eng_ref, wave
+
+
+@pytest.mark.parametrize("host_fallback", [False, True])
+@pytest.mark.parametrize("op", ["and", "or"])
+def test_query_batch_with_pad_rows_and_mixed_token_counts_matches_reference(
+        op, host_fallback):
+    """38 live queries (a Qb of 64: 26 pad rows), token counts 1..6 (a Tb
+    of 8: pad slots in every row), empty queries between
+    them; with a host-fallback segment OR-ing into the accumulator before
+    the fold too."""
+    segs, eng_ref, wave = _engines(11, host_fallback)
+    eng = QueryEngine(segs, device="cpu")
+    got, want = eng.query_batch(wave, op=op), eng_ref.query_batch(wave, op=op)
+    assert len(got) == len(wave) == 45
+    assert sum(map(bool, wave)) == 38
+    for g, w, toks in zip(got, want, wave):
+        assert g.dtype == np.int64
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, eng.host_query(toks, op=op))
+    assert sum(len(g) > 0 for g in got) > 20
+
+
+def test_wave_answers_are_unchanged_after_the_next_wave():
+    """Each wave's answers are its own: a second, larger wave on the same
+    engine leaves the first's as they were, and no answer of one wave
+    shares memory with another's."""
+    segs, _, wave = _engines(12, ref=False)
+    eng = QueryEngine(segs, device="cpu")
+    first = eng.query_batch(wave[:20])
+    kept = [a.copy() for a in first]
+    second = eng.query_batch(wave, op="or")
+    for a, b in zip(first, kept):
+        np.testing.assert_array_equal(a, b)
+    assert any(len(a) for a in first)
+    assert not any(np.shares_memory(a, b) for a in first for b in second)
+
+
+def _waves_from_threads(eng, wave, n_threads=4, rounds=6):
+    """Every thread runs ``rounds`` waves on ``eng`` at once (a wave, its
+    reverse under OR, a prefix), all started together; -> each thread's
+    answers, and the same waves run one after another for comparison."""
+    jobs = [(wave, "and"), (wave[::-1], "or"), (wave[:17], "and")]
+    want = [eng.query_batch(w, op=op) for w, op in jobs]
+    start = threading.Barrier(n_threads)
+    got = [[] for _ in range(n_threads)]
+
+    def run(i):
+        start.wait()
+        for r in range(rounds):
+            j = (i + r) % len(jobs)
+            got[i].append((j, eng.query_batch(jobs[j][0], op=jobs[j][1])))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return got, want
+
+
+def _assert_threads_agree(got, want):
+    assert all(len(g) for g in got)
+    for answers in got:
+        for j, out in answers:
+            assert len(out) == len(want[j])
+            for a, b in zip(out, want[j]):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_waves_from_several_threads_on_one_engine_keep_their_answers():
+    """Four threads run waves on one engine at once, with a host-fallback
+    segment (whose decoded lists go through the engine's LRU): each gets
+    the answers the same wave gets alone."""
+    segs, _, wave = _engines(15, host_fallback=True, ref=False)
+    eng = QueryEngine(segs, device="cpu", lru_lists=8)
+    _assert_threads_agree(*_waves_from_threads(eng, wave))
+
+
+def test_empty_and_answerless_waves_return_empty_arrays():
+    """A wave whose AND answers are all empty (total 0), one of empty
+    queries only, and an empty wave."""
+    segs, eng_ref, wave = _engines(13)
+    eng = QueryEngine(segs, device="cpu")
+    absent = [[int(wave[0][0]), 7], [8, 9, 10], [], [11]]
+    for w in (absent, [[], []], []):
+        got = eng.query_batch(w)
+        assert len(got) == len(w)
+        assert all(g.dtype == np.int64 and g.size == 0 for g in got)
+        for g, r in zip(got, eng_ref.query_batch(w)):
+            np.testing.assert_array_equal(g, r)
 
 
 # ------------------------------------------------------ fused probe
@@ -433,3 +577,41 @@ def test_cuda_engine_wave_launches_one_hash_and_one_probe_a_segment(cuda):
     assert np.subtract(after, before).tolist() == [1, 2, 0]
     for g, w in zip(got, cpu.query_batch(toks)):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_engine_wave_folds_and_extracts_in_one_launch_each(cuda):
+    """A wave launches the ragged fold once and the ragged extract once
+    (the padded entries never), equals the CPU engine, and its answers
+    survive the next wave: they are views of a fresh array, not of a
+    pinned buffer that a later copy reuses.  An answerless wave launches
+    no extract."""
+    segs, _, wave = _engines(14, host_fallback=True, ref=False)
+    eng, cpu = QueryEngine(segs, device=cuda), QueryEngine(segs, device="cpu")
+    entries = (bitset_reduce_ragged, bitmap_extract_ragged,
+               bitset_reduce_batch, bitmap_extract)
+    before = [e.launch_count for e in entries]
+    first = eng.query_batch(wave)
+    assert [e.launch_count - b for e, b in zip(entries, before)] == [1, 1, 0, 0]
+    kept = [a.copy() for a in first]
+    for g, w in zip(first, cpu.query_batch(wave)):
+        np.testing.assert_array_equal(g, w)
+    second = eng.query_batch(wave[::-1], op="or")
+    for g, w in zip(second, cpu.query_batch(wave[::-1], op="or")):
+        np.testing.assert_array_equal(g, w)
+    for a, b in zip(first, kept):
+        np.testing.assert_array_equal(a, b)
+    assert not any(np.shares_memory(a, b) for a in first for b in second)
+    before = [e.launch_count for e in entries]
+    assert not any(len(a) for a in eng.query_batch([[7, 8], [9]]))
+    assert [e.launch_count - b for e, b in zip(entries, before)] == [1, 0, 0, 0]
+
+
+@pytest.mark.requires_cuda
+def test_cuda_waves_from_several_threads_on_one_engine(cuda):
+    """As on the CPU: four threads' waves on one engine on the card, each
+    copying its counts and ids to the host at the same time as the
+    others', get the answers the same waves get alone."""
+    segs, _, wave = _engines(15, host_fallback=True, ref=False)
+    eng = QueryEngine(segs, device=cuda, lru_lists=8)
+    _assert_threads_agree(*_waves_from_threads(eng, wave, rounds=24))
