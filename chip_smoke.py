@@ -36,6 +36,25 @@ Phases (any failure raises, so the exit code is not 0):
      (printed with the host-clock stage split), every candidate list must
      equal the engine's scalar host path and a sample of term answers must
      equal the scan store's;
+  4b. the durable path on phase 4's lines and queries:
+     ``DynaWarpStore(mode="segmented", path=..., fsync=True)`` publishing
+     its manifest at every spill, a snapshot every 100,000 lines answering
+     a standing wave of 256 terms (32 present ids, 224 absent; its matches
+     equal to phase 4's below the snapshot's line count), the term and contains candidates equal to
+     phase 4's bit for bit; ``close()`` and ``open(mmap=True)``, the first
+     wave's uploads from the memmapped segments (one a segment), warm waves
+     with phase 4's launch counts and answers, a second ``open()`` that
+     uploads nothing, and the fused probe held against its plain version
+     on the largest memmap-backed segment; ``open(background_compact=True)``
+     with ``request_compact(fanout=2)`` and term waves while the worker
+     merges (each equal to phase 4's candidates while the old segments
+     serve, to its engine's host path after the swap: the segmentation
+     decides a sketch's false positives), then the advanced manifest, the
+     merged-away files gone, each merged segment uploaded once and the
+     standing wave's matches equal to phase 4's; a crash at the second manifest swap
+     of a 200,000-line prefix (4 MiB spills), ``open()``, resume and
+     ``finish()``, exact over the prefix.  Its directory lives under
+     ``build/`` and is removed at the end;
   5. the CSC path: ``CscStore`` on the same lines, sized by the paper's
      protocol (the next power of two above the DynaWarp sketch's bits), its
      bits on the GPU; the same term and contains queries as one
@@ -86,15 +105,23 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 N_LINES, N_SOURCES, SEED, BATCH_LINES = 1_000_000, 1000, 3, 512
 N_TERMS, N_NEEDLES = 4096, 1024      # term wave: half present, half absent
+# phase 4b: the snapshots' standing term wave and cadence, and the crash
+# sub-phase's prefix and spill limit (at the paper's 32 MiB the first spill
+# comes after about 330,000 lines; 4 MiB spills 3 times in 200,000)
+N_STANDING, N_STANDING_PRESENT, SNAP_EVERY = 256, 32, 100_000
+CRASH_LINES, CRASH_MEMORY = 200_000, 4 << 20
 N_SCAN_SAMPLE = 8
 N_TOKEN_ROWS = 32_768                # a term matrix above any flush batch's
 # examples/log_search.py: the Log4Shell hunt over every store
@@ -1522,9 +1549,314 @@ def main_path(torch, np, dev, counters) -> dict:
                   f"{eng.words})")
     return dict(launches=launches, waves=waves, ingest_s=ingest_s,
                 ds=ds, terms=terms, needles=needles, needle_toks=needle_toks,
+                term_cands=term_cands, contains=contains,
                 store=store, scan=scan, truth=truth, token_launch=token_launch,
                 wave_mats=wave_mats, wave_folds=wave_folds,
                 wave_extracts=wave_extracts, fused_case=fused_case)
+
+
+# --------------------------------------------------------------- phase 4b
+def dir_bytes(path) -> dict:
+    """Bytes on disk of a durable store: its blob file, its segment files
+    and its manifest."""
+    out = dict(blob=0, segments=0, manifest=0)
+    for name in os.listdir(path):
+        n = os.path.getsize(os.path.join(path, name))
+        if name.startswith("blobs-"):
+            out["blob"] += n
+        elif name.endswith(".dwp"):
+            out["segments"] += n
+        elif name == "MANIFEST.json":
+            out["manifest"] += n
+    return out
+
+
+def durable_path(torch, np, dev, counters, seg) -> dict:
+    """Phase 4's lines and queries through the durable store: a per-spill
+    publishing ingest with snapshot waves, a reopen from np.memmap (and a
+    second one that must upload nothing), background compaction under
+    waves, and a crash at a manifest swap, recovered, resumed and
+    finished.  Every answer is held to phase 4's."""
+    from repro_torch.core import faults, serial
+    from repro_torch.core.batch_builder import wave_fingerprints
+    from repro_torch.core.tokenizer import term_query_tokens
+    from repro_torch.kernels.bitmap_extract.ops import bitmap_extract_ragged
+    from repro_torch.kernels.bitset_ops.ops import bitset_reduce_ragged
+    from repro_torch.kernels.sketch_probe.ops import match_planes
+    from repro_torch.logstore.store import MANIFEST_NAME, DynaWarpStore
+
+    lines, terms, needle_toks = seg["ds"].lines, seg["terms"], seg["needle_toks"]
+    want = {"term": seg["term_cands"], "contains_and": seg["contains"]["and"],
+            "contains_or": seg["contains"]["or"]}
+    waves_of = {
+        "term": lambda st: st.candidates_term_batch(terms),
+        "contains_and": lambda st: st.engine.query_batch(needle_toks,
+                                                         op="and"),
+        "contains_or": lambda st: st.engine.query_batch(needle_toks, op="or")}
+    # the standing wave: present ids of the term wave's first half, absent
+    # ones of its second (a present id's post-filter reads hundreds of
+    # batches)
+    half = len(terms) // 2
+    standing = (terms[:N_STANDING_PRESENT]
+                + terms[half:half + N_STANDING - N_STANDING_PRESENT])
+    truth = [r.matches for r in seg["store"].query_term_batch(standing)]
+    term_lists = [term_query_tokens(t) for t in terms]
+
+    def same(name, got, what):
+        require(len(got) == len(want[name]) and all(
+            np.array_equal(a, b) for a, b in zip(got, want[name])),
+            f"{what}: the {name} wave differs from phase 4's candidates")
+
+    def prefix_exact(results, n_lines, what):
+        for t, r, m in zip(standing, results, truth):
+            require(r.matches == [x for x in m if x < n_lines],
+                    f"{what}: {t!r} differs from phase 4's matches below "
+                    f"line {n_lines}")
+
+    def exact(store, what):
+        """A finished store whose segments are not phase 4's: the term
+        wave equals its engine's host path, and the standing wave's matches
+        equal phase 4's."""
+        eng = store.engine
+        for toks, c in zip(term_lists, eng.query_batch(term_lists)):
+            require(np.array_equal(c, eng.host_query(toks)), f"{what}: the "
+                    f"term wave differs from the host path")
+        prefix_exact(store.query_term_batch(standing), len(lines), what)
+
+    entries = (match_planes, bitset_reduce_ragged, bitmap_extract_ragged)
+
+    def checked_wave(name, store, what):
+        """One wave of ``store``: one token_hash launch, one fused probe a
+        segment, one ragged fold and one ragged extraction, answers equal
+        to phase 4's.  Returns its host-clock seconds."""
+        n_planes = len(store.engine._plane_segs)
+        before, at = read(counters), [e.launch_count for e in entries]
+        t = time.perf_counter()
+        out = waves_of[name](store)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        n = {k: v - before[k] for k, v in read(counters).items()}
+        fused, fold, extract = (e.launch_count - a
+                                for e, a in zip(entries, at))
+        require(n["token_hash"] == 1, f"{what} {name}: token_hash launched "
+                f"{n['token_hash']} times a wave, not once")
+        require(fused == n["sketch_probe"] == n_planes, f"{what} {name}: "
+                f"{fused} fused probes for {n_planes} segments "
+                f"({n['sketch_probe']} sketch_probe launches in all)")
+        require(fold == n["bitset_reduce_batch"] == 1, f"{what} {name}: "
+                f"{fold} ragged folds a wave, not one")
+        require(extract == n["bitmap_extract"] == 1, f"{what} {name}: "
+                f"{extract} ragged extractions a wave, not one")
+        same(name, out, what)
+        return dt
+
+    os.makedirs(ROOT / "build", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="durable-", dir=ROOT / "build")
+    try:
+        reset(counters)
+        # ------------------------------------------------ durable ingest
+        path = os.path.join(tmp, "store")
+        st = DynaWarpStore(batch_lines=BATCH_LINES, mode="segmented",
+                           path=path, fsync=True, publish_per_spill=True,
+                           device=dev)
+        snaps, snap_s = [], 0.0
+        t0 = time.perf_counter()
+        for i in range(0, len(lines), SNAP_EVERY):
+            st.ingest(lines[i:i + SNAP_EVERY])
+            t = time.perf_counter()
+            snap = st.snapshot()
+            got = snap.query_term_batch(standing)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            snap_s += dt
+            prefix_exact(got, snap.n_lines, f"snapshot at {st._n_lines} "
+                         f"lines")
+            snaps.append(dict(lines_in=st._n_lines, n_lines=snap.n_lines,
+                              generation=st._manifest_gen, ms=1e3 * dt))
+        st.finish()
+        ingest_s = time.perf_counter() - t0 - snap_s
+        require(any(s["n_lines"] for s in snaps),
+                "no snapshot covered a published prefix")
+        disk, publishes = dir_bytes(path), st._manifest_gen
+        index_bytes = st.index_bytes()
+        print(f"durable ingest+finish {ingest_s:.1f} s (snapshot waves "
+              f"apart), publish_s {st.stats.publish_s:.2f} s, "
+              f"{publishes} manifest publishes, {len(st.segments)} "
+              f"segments; on disk: blob file {disk['blob']}, segment files "
+              f"{disk['segments']}, manifest {disk['manifest']} bytes; "
+              f"index_bytes() {index_bytes}", flush=True)
+        print("durable snapshots (standing wave of "
+              f"{len(standing)} terms): " + ", ".join(
+                  f"{s['lines_in']} in / {s['n_lines']} published (gen "
+                  f"{s['generation']}) {s['ms']:.2f} ms" for s in snaps),
+              flush=True)
+        for name in waves_of:
+            same(name, waves_of[name](st), "durable store")
+        print("durable store: term, contains AND and OR candidates equal "
+              "phase 4's bit for bit", flush=True)
+        st.close()
+
+        # -------------------------------------------------------- reopen
+        t = time.perf_counter()
+        re = DynaWarpStore.open(path, mmap=True, device=dev)
+        open_s = time.perf_counter() - t
+        require(all(isinstance(s.planes, np.memmap) for s in re.segments),
+                "the reopened segments are not memmap-backed")
+        seg_files = [os.path.join(path, s._durable_file) for s in re.segments]
+        t = time.perf_counter()
+        for f in seg_files:
+            serial.load(f, mmap=True, load_source=False)
+        bare_s = time.perf_counter() - t
+        n_lists = sum(len(s.sealed_source.lists) for s in re.segments)
+        require(not any(s.has_device_cache(dev) for s in re.segments),
+                "a closed store's buffers are still staged")
+        first_s = checked_wave("term", re, "reopened")
+        upload_bytes = re.engine.device_bytes()
+        require(re.engine.upload_count == len(re.segments),
+                f"{re.engine.upload_count} uploads for {len(re.segments)} "
+                f"segments")
+        warm = {}
+        for name in waves_of:
+            dt = checked_wave(name, re, "reopened")
+            warm[name] = dict(ms=1e3 * dt, qps=len(want[name]) / dt)
+        print(f"reopen: open() {open_s:.3f} s (the segment files alone, "
+              f"without their sealed sources, {bare_s:.3f} s; the sealed "
+              f"sources' {n_lists} posting lists are one memmap view each), "
+              f"first term wave {first_s:.3f} s ({re.engine.upload_count} "
+              f"uploads from the memmapped segments, {upload_bytes} bytes); "
+              "warm " + ", ".join(f"{k} {v['ms']:.2f} ms = {v['qps']:.0f} q/s"
+                                  for k, v in warm.items())
+              + "; launches as phase 4's, answers equal", flush=True)
+        re2 = DynaWarpStore.open(path, mmap=True, device=dev)
+        require(all(s.has_device_cache(dev) for s in re2.segments),
+                "a second open() finds its segments unstaged")
+        again_s = checked_wave("term", re2, "second open")
+        require(re2.engine.upload_count == 0, f"a second open() uploaded "
+                f"{re2.engine.upload_count} segments")
+        print(f"second open() in the process: first term wave {again_s:.3f} "
+              f"s, 0 uploads, 0 bytes", flush=True)
+        big = max(re.segments, key=lambda sg: sg.n_tokens)
+        flat, lens = wave_fingerprints(term_lists, device=dev)
+        fps = re.engine._pack(flat, lens[np.flatnonzero(lens)])
+        fused_case = (big, u32_tensor(torch, np, fps.reshape(-1), dev),
+                      big.device_cache(dev),
+                      torch.zeros((fps.size, re.engine.words),
+                                  dtype=torch.int32, device=dev),
+                      f"term wave Q={fps.size} against the largest reopened "
+                      f"(memmap-backed) segment ({big.n_tokens} tokens, "
+                      f"W={big.planes.shape[1]}->{re.engine.words})")
+
+        # -------------------------------------------- background compaction
+        bg = DynaWarpStore.open(path, background_compact=True, device=dev)
+        gen0, pre, eng0 = bg._manifest_gen, list(bg.segments), bg.engine
+        tiers = [s.size_bytes().bit_length() for s in pre]
+        answered = []            # (engine, answers) of each wave meanwhile
+        t = time.perf_counter()
+        bg.request_compact(fanout=2)
+        while bg._worker._pending or bg._worker._active:
+            eng = bg.engine
+            answered.append((eng, eng.query_batch(term_lists)))
+            torch.cuda.synchronize()
+        merges = bg.wait_compaction(timeout=600)
+        compact_s = time.perf_counter() - t
+        require(merges >= 1, f"background compaction merged nothing "
+                f"(segment size tiers {tiers})")
+        require(bg._manifest_gen > gen0, "the manifest did not advance")
+        files = set(os.listdir(path))
+        gone = {s._durable_file for s in pre
+                if all(s is not x for x in bg.segments)}
+        require(gone and not gone & files,
+                f"merged-away segment files remain: {gone & files}")
+        new = [s for s in bg.segments if all(s is not p for p in pre)]
+        # a wave of the old engine equals phase 4's candidates, one of the
+        # compacted engine that engine's host path
+        host = {}
+        for eng, got in answered:
+            if eng is eng0:
+                same("term", got, "during compaction")
+                continue
+            if id(eng) not in host:
+                host[id(eng)] = [eng.host_query(x) for x in term_lists]
+            require(all(np.array_equal(a, b)
+                        for a, b in zip(got, host[id(eng)])),
+                    "during compaction: a wave of the compacted engine "
+                    "differs from its host path")
+        exact(bg, "after compaction")
+        for op in ("and", "or"):
+            eng = bg.engine
+            for toks, c in zip(needle_toks,
+                               eng.query_batch(needle_toks, op=op)):
+                require(np.array_equal(c, eng.host_query(toks, op=op)),
+                        f"after compaction: the contains {op} wave differs "
+                        f"from the host path")
+        # the unchanged segments are staged already; the compacted engine
+        # is the only one that can have uploaded the merged ones
+        require(new and bg.engine.upload_count == len(new),
+                f"{bg.engine.upload_count} uploads for {len(new)} merged "
+                f"segments")
+        during = (sum(e is eng0 for e, _ in answered),
+                  sum(e is not eng0 for e, _ in answered))
+        print(f"background compaction: {merges} merges of {len(pre)} "
+              f"segments (size tiers {tiers}) into {len(bg.segments)}, "
+              f"{compact_s:.2f} s from request to drained, {sum(during)} "
+              f"term waves answered meanwhile ({during[0]} by the old "
+              f"engine, equal to phase 4's candidates; {during[1]} by the "
+              f"compacted one, equal to its host path), generation {gen0} "
+              f"-> {bg._manifest_gen}, files {sorted(gone)} gone, each "
+              f"merged segment uploaded once; afterwards the term wave "
+              f"equals the host path and the standing wave's matches phase "
+              f"4's", flush=True)
+        bg.close()
+        re.close()
+        re2.close()
+
+        # ----------------------------------------------- crash and resume
+        cpath = os.path.join(tmp, "crash")
+        prefix = lines[:CRASH_LINES]
+        w = DynaWarpStore(batch_lines=BATCH_LINES, mode="segmented",
+                          path=cpath, fsync=True,
+                          memory_limit_bytes=CRASH_MEMORY, device=dev)
+        crashed = False
+        with faults.inject(crash_at="manifest.replace", after=1) as inj:
+            try:
+                w.ingest(prefix)
+                w.finish()
+            except faults.CrashError:
+                crashed = True
+        require(crashed and inj.fired == 1,
+                "no crash at the second manifest swap")
+        w.blobs.close()                 # the dead writer's file
+        with open(os.path.join(cpath, MANIFEST_NAME)) as f:
+            man = json.load(f)
+        t = time.perf_counter()
+        rec = DynaWarpStore.open(cpath, device=dev)
+        crash_open_s = time.perf_counter() - t
+        recovered = rec._n_lines
+        require(not rec._finished and recovered == man["n_lines"]
+                == man["batch_start"][-1] > 0,
+                f"open() after the crash recovered {recovered} lines, the "
+                f"manifest holds {man['n_lines']}")
+        rec.ingest(prefix[recovered:])
+        rec.finish()
+        prefix_exact(rec.query_term_batch(standing), CRASH_LINES,
+                     "crash -> open -> resume -> finish")
+        rec.close()
+        print(f"crash at the second manifest swap of {CRASH_LINES} lines "
+              f"({CRASH_MEMORY >> 10} KiB spills): open() {crash_open_s:.3f}"
+              f" s, {recovered} lines recovered, resumed and finished, "
+              f"matches equal phase 4's below line {CRASH_LINES}", flush=True)
+        launches = read(counters)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(launches=launches, fused_case=fused_case, summary=dict(
+        ingest_s=ingest_s, publish_s=st.stats.publish_s, publishes=publishes,
+        disk_bytes=disk, index_bytes=index_bytes, snapshots=snaps,
+        open_s=open_s, open_files_without_sources_s=bare_s,
+        sealed_lists=n_lists, first_wave_s=first_s, upload_bytes=upload_bytes,
+        uploads=len(re.segments), warm=warm, second_open_wave_s=again_s,
+        compaction=dict(merges=merges, s=compact_s, waves_old_engine=during[0],
+                        waves_new_engine=during[1], tiers=tiers),
+        crash=dict(open_s=crash_open_s, recovered_lines=recovered)))
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1864,6 +2196,14 @@ def main() -> int:
                  "token_hash"):
         require(seg["launches"][name] > 0,
                 f"the segmented path never launched {name}")
+    durable = durable_path(torch, np, dev, counters, seg)
+    paths["durable"] = durable["launches"]
+    for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
+                 "token_hash"):
+        require(durable["launches"][name] > 0,
+                f"the durable path never launched {name}")
+    kernels["sketch_probe"]["at_reopen"] = hold_fused(
+        torch, np, [durable["fused_case"]], flush)
     csc = csc_path(torch, np, dev, counters, seg)
     paths["csc"] = csc["launches"]
     for name in ("token_hash", "csc_probe"):
@@ -1920,6 +2260,7 @@ def main() -> int:
                  shape=k["shape"],
                  **{key: k[key] for key in ("cold_ms", "library_cold_ms",
                                             "at_launch", "at_waves",
+                                            "at_reopen",
                                             "probe_entry", "batch_entry",
                                             "padded_entry") if key in k})
             for name, k in kernels.items()]
@@ -1927,6 +2268,7 @@ def main() -> int:
     print(json.dumps(dict(card=card, total_s=total_s,
                           segmented=dict(ingest_s=seg_summary["ingest_s"],
                                          waves=seg_summary["waves"]),
+                          durable=durable["summary"],
                           csc=csc, log_search=hunt["stores"], lm=lm,
                           recsys=rec)))
     print(json.dumps({"kernels": rows, "launch_floor_ms": floor_ms}))

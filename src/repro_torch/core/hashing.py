@@ -167,6 +167,25 @@ def mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & U32
 
 
+def torch_posting_element_hash(p: torch.Tensor
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 64-bit LCG step of u32 postings as int64-carried u32 (hi, lo)
+    halves: ``(hi << 32) | lo == (LCG_A * p + LCG_C) mod 2^64``.  The low
+    word of ``LCG_A`` multiplies the two 16-bit halves of ``p`` apart, so
+    no partial product leaves int64's range; the high word needs only its
+    product mod 2^32 (:func:`mul32`)."""
+    p = as_u32(p)
+    a_lo = LCG_A & U32
+    low = a_lo * (p & 0xFFFF)                 # < 2^48
+    mid = a_lo * (p >> 16)                    # < 2^48, weight 2^16
+    low = low + ((mid & 0xFFFF) << 16)        # < 2^49
+    carry = (low >> 32) + (mid >> 16)
+    hi = (mul32(p, LCG_A >> 32) + carry) & U32
+    lo = (low & U32) + (LCG_C & U32)
+    hi = (hi + (LCG_C >> 32) + (lo >> 32)) & U32
+    return hi, lo & U32
+
+
 def torch_popcount32(x: torch.Tensor) -> torch.Tensor:
     """SWAR popcount of int64-carried u32 values (torch has no popcount)."""
     x = as_u32(x)

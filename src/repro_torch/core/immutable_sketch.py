@@ -34,6 +34,28 @@ SIG_SEED = 0x516E4715
 DEFAULT_SIG_BITS = 8
 DEFAULT_PLANE_BUDGET = 64 << 20  # bytes of optional device bitmap planes
 
+# Process-global device-cache registry keyed by (DURABLE segment id,
+# device) — the id is "<abs file path>@g<generation>", assigned by the
+# manifest-based store.  RAM-only sketches memoize on the object as before;
+# durable sketches share this registry so reopening a store in the same
+# process re-uploads nothing it already staged — the id, not Python object
+# identity, names the uploaded buffers.  Entries are dropped with the
+# segment files (compaction orphan GC calls drop_device_cache /
+# discard_durable_caches).
+_DURABLE_DEVICE_CACHES: dict[tuple[str, torch.device], dict] = {}
+
+
+def discard_durable_caches(durable_id_or_path: str) -> None:
+    """Free every registry entry of a durable segment id, on every device —
+    or, given a bare file path, of EVERY generation of that path (orphan GC
+    deletes files; a later path reuse must never see stale buffers)."""
+    prefix = durable_id_or_path + "@"
+    # list() copies the keys in one step: a wave on another thread may
+    # stage a segment meanwhile
+    for k in list(_DURABLE_DEVICE_CACHES):
+        if k[0] == durable_id_or_path or k[0].startswith(prefix):
+            _DURABLE_DEVICE_CACHES.pop(k, None)
+
 
 @dataclass
 class ImmutableSketch:
@@ -52,6 +74,10 @@ class ImmutableSketch:
     # must stay mergeable by the cold-segment compactor; MPHFs alone are
     # not mergeable.  Excluded from size accounting (host-side scratch).
     sealed_source: SealedContent | None = None
+    # Durable segment id ("<abs path>@g<gen>") once the manifest-based
+    # store has published this segment to disk; keys the process-global
+    # device-cache registry instead of object identity.
+    durable_id: str | None = None
 
     # ------------------------------------------------------------------ sizes
     @property
@@ -137,30 +163,55 @@ class ImmutableSketch:
         """Memoized :meth:`device_arrays` — the per-segment device cache of
         the wave query engine.  The flat sketch buffers are uploaded on
         first use and reused by every later wave; asking for another device
-        replaces the memo."""
+        replaces the memo.  Durable segments (published by the
+        manifest-based store) memoize in a process-global registry keyed by
+        :attr:`durable_id` and the device, so a store reopened in the same
+        process re-uploads nothing it already staged."""
         device = canonical_device(device)
+        if self.durable_id is not None:
+            key = (self.durable_id, device)
+            arrs = _DURABLE_DEVICE_CACHES.get(key)
+            if arrs is None:
+                arrs = _DURABLE_DEVICE_CACHES[key] = \
+                    self.device_arrays(device)
+            return arrs
         memo = getattr(self, "_device_cache", None)
         if memo is None or memo[0] != device:
             memo = self._device_cache = (device, self.device_arrays(device))
         return memo[1]
 
     def has_device_cache(self, device) -> bool:
-        """Whether this segment's flat buffers are staged on ``device``."""
+        """Whether this segment's flat buffers are staged on ``device`` (the
+        engine's upload accounting — durable-id aware)."""
+        device = canonical_device(device)
+        if self.durable_id is not None:
+            return (self.durable_id, device) in _DURABLE_DEVICE_CACHES
         memo = getattr(self, "_device_cache", None)
-        return memo is not None and memo[0] == canonical_device(device)
+        return memo is not None and memo[0] == device
 
     def drop_device_cache(self) -> None:
         """Free the memoized device arrays (segments merged away by
-        compaction)."""
+        compaction).  A durable segment also loses its registry identity:
+        its file is about to be GC'd, and an in-flight wave still probing
+        it (background compaction) must fall back to the per-object memo —
+        re-inserting under the dead durable id would leak the upload for
+        the rest of the process."""
         self._device_cache = None
+        if self.durable_id is not None:
+            discard_durable_caches(self.durable_id)
+            self.durable_id = None
+
+    def _staged(self) -> list[dict]:
+        if self.durable_id is not None:
+            return [a for (i, _), a in list(_DURABLE_DEVICE_CACHES.items())
+                    if i == self.durable_id]
+        memo = getattr(self, "_device_cache", None)
+        return [] if memo is None else [memo[1]]
 
     def device_bytes(self) -> int:
         """Bytes of the staged device buffers (0 when nothing is staged)."""
-        memo = getattr(self, "_device_cache", None)
-        if memo is None:
-            return 0
-        return sum(v.numel() * v.element_size() for v in memo[1].values()
-                   if isinstance(v, torch.Tensor))
+        return sum(v.numel() * v.element_size() for arrs in self._staged()
+                   for v in arrs.values() if isinstance(v, torch.Tensor))
 
     def match_bitmap_torch(self, fps: torch.Tensor, arrs: dict, *,
                            out: torch.Tensor | None = None) -> torch.Tensor:

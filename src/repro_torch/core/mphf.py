@@ -35,8 +35,12 @@ def _level_seed(level: int) -> int:
 
 
 def u32_tensor(a: np.ndarray, device) -> torch.Tensor:
-    """A u32 numpy array on ``device`` as an int32 tensor of the same bits."""
+    """A u32 numpy array on ``device`` as an int32 tensor of the same bits.
+    A read-only array (a segment file's ``np.memmap``) is copied first: a
+    CPU tensor must not alias the mapping's read-only pages."""
     a = np.ascontiguousarray(a, dtype=np.uint32)
+    if not a.flags.writeable:
+        a = a.copy()
     return torch.from_numpy(a.view(np.int32)).to(device)
 
 

@@ -60,3 +60,21 @@ def test_host_hashes_are_the_reference_copies():
     for t in toks:
         assert port.token_fingerprint(t) == ref.token_fingerprint(t)
     assert port.postings_hash([1, 5, 9]) == ref.postings_hash([1, 5, 9])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("as_int32", [False, True])
+def test_torch_posting_element_hash_matches_jnp_and_scalar(seed, as_int32):
+    """The masked int64 LCG step equals the JAX package's 16-bit-limb
+    (hi, lo) pair and the scalar 64-bit step, edges included."""
+    x = _inputs(seed)
+    t = torch.from_numpy(x.view(np.int32)) if as_int32 \
+        else torch.from_numpy(x.astype(np.int64))
+    hi, lo = port.torch_posting_element_hash(t)
+    ref_hi, ref_lo = ref.jnp_posting_element_hash(jnp.asarray(x))
+    np.testing.assert_array_equal(hi.numpy(),
+                                  np.asarray(ref_hi).astype(np.int64))
+    np.testing.assert_array_equal(lo.numpy(),
+                                  np.asarray(ref_lo).astype(np.int64))
+    for v, h, l in zip(x[:64].tolist(), hi[:64].tolist(), lo[:64].tolist()):
+        assert (h << 32) | l == ref.posting_element_hash(v)

@@ -150,7 +150,12 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.launch.serve, "
             "repro_torch.kernels.retrieval_score.ops, "
             "repro_torch.kernels.embedding_bag.ops, "
-            "repro_torch.kernels.flash_decode.ops; "
+            "repro_torch.kernels.flash_decode.ops, "
+            "repro_torch.core.faults, repro_torch.core.serial, "
+            "repro_torch.logstore.blobfile, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.batched_query, "
+            "repro_torch.examples.tail_ingest; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -167,23 +172,40 @@ def test_default_device_without_gpu_raises(monkeypatch):
         DynaWarpStore(device="cuda")
 
 
-def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        DynaWarpStore(device="cpu", path="somewhere")
-    with pytest.raises(NotImplementedError):
+def test_unported_paths_raise(small_dataset, tmp_path):
+    """``shard_axes=`` and ``serving()`` raise "not yet ported" and a bad
+    mode raises; ``path=``, ``snapshot()`` and ``open()`` work and answer
+    as the reference's."""
+    with pytest.raises(NotImplementedError, match="not yet ported"):
         DynaWarpStore(device="cpu", shard_axes=("data",))
-    with pytest.raises(NotImplementedError):
-        DynaWarpStore(device="cpu").snapshot()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="not yet ported"):
         DynaWarpStore(device="cpu").serving()
-    with pytest.raises(NotImplementedError):
-        DynaWarpStore.open("somewhere")
     with pytest.raises(ValueError):
         DynaWarpStore(device="cpu", mode="streaming")
+    lines = small_dataset.lines[:800]
+    terms = present_id_queries(small_dataset, 11, 5) + ["info"]
+    d, rd = str(tmp_path / "port"), str(tmp_path / "ref")
+    port = DynaWarpStore(device="cpu", path=d, **STORE_KW)
+    ref = RefStore(path=rd, **STORE_KW)
+    for s in (port, ref):
+        s.ingest(lines)
+    snap, ref_snap = port.snapshot(), ref.snapshot()
+    assert snap.n_lines == ref_snap.n_lines > 0
+    for t in terms:
+        assert snap.query_term(t).matches == ref_snap.query_term(t).matches
+    for s in (port, ref):
+        s.finish()
+        s.close()
+    re, ref_re = DynaWarpStore.open(d, device="cpu"), RefStore.open(rd)
+    scan = RefScan(batch_lines=16)
+    scan.ingest(lines)
+    scan.finish()
+    for t in terms:
+        assert re.query_term(t).matches == ref_re.query_term(t).matches \
+            == scan.query_term(t).matches
 
 
-# the reference's keywords that the port takes at their defaults only,
-# each with a value it refuses until its slice is ported
+# the reference's keywords with the reference's default and another value
 REF_ONLY_KW = [("extract_on_device", None, False), ("mmap", True, False),
                ("fsync", False, True), ("background_compact", False, True),
                ("publish_per_spill", True, False), ("compact_retry", 3, 5),
@@ -191,9 +213,12 @@ REF_ONLY_KW = [("extract_on_device", None, False), ("mmap", True, False),
 
 
 @pytest.mark.parametrize("kw,default,other", REF_ONLY_KW)
-def test_reference_keywords_accepted_at_default(kw, default, other):
-    """Each keyword has the reference's default, constructs a store at
-    that default, and raises "not yet ported" at any other value."""
+def test_reference_keywords_accepted_at_default(kw, default, other,
+                                                tmp_path):
+    """Each keyword has the reference's default and constructs a store at
+    that default.  At its other value a durable store of each package
+    answers the same, before and after a reopen (``extract_on_device=False``
+    still raises "not yet ported")."""
     import inspect
     assert inspect.signature(DynaWarpStore).parameters[kw].default \
         == inspect.signature(RefStore).parameters[kw].default == default
@@ -201,10 +226,33 @@ def test_reference_keywords_accepted_at_default(kw, default, other):
     st.ingest([f"line {i} id=abc{i % 7}" for i in range(40)])
     st.finish()
     assert st.query_term("abc3").matches == list(range(3, 40, 7))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DynaWarpStore(device="cpu", **{kw: other})
     if kw == "extract_on_device":
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            DynaWarpStore(device="cpu", **{kw: other})
         DynaWarpStore(device="cpu", extract_on_device=True)
+        return
+    lines = [f"line {i} id=abc{i % 7} host=h{i % 13}" for i in range(600)]
+    terms = [f"abc{k}" for k in range(7)] + ["h5", "line"]
+    answers = []
+    for cls, dev in ((DynaWarpStore, dict(device="cpu")), (RefStore, {})):
+        d = str(tmp_path / cls.__module__.split(".")[0])
+        s = cls(batch_lines=16, mode="segmented", memory_limit_bytes=1 << 11,
+                auto_compact=False, path=d, **{kw: other}, **dev)
+        s.ingest(lines)
+        s.finish()
+        if kw == "background_compact":
+            s.request_compact(fanout=2)
+            assert s.wait_compaction(timeout=300) > 0
+        got = [s.query_term(t).matches for t in terms]
+        s.close()
+        re = cls.open(d, **({kw: other} if kw == "mmap" else {}), **dev)
+        assert getattr(re, kw) == other or kw in ("fsync",
+                                                  "background_compact")
+        assert [re.query_term(t).matches for t in terms] == got
+        re.close()
+        answers.append(got)
+    assert answers[0] == answers[1]
+    assert answers[0][3] == list(range(3, 600, 7))
 
 
 def test_default_mode_is_batch_as_in_reference():
