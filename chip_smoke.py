@@ -54,7 +54,26 @@ Phases (any failure raises, so the exit code is not 0):
      standing wave's matches equal to phase 4's; a crash at the second manifest swap
      of a 200,000-line prefix (4 MiB spills), ``open()``, resume and
      ``finish()``, exact over the prefix.  Its directory lives under
-     ``build/`` and is removed at the end;
+     ``build/`` and is removed after phase 4c;
+  4c. the serving front end on phase 4's store: the cost model measured on
+     the card (``measure_dispatch_costs``, buckets 8..256, median of 5,
+     written to ``build/bench_costmodel.json``); an open-loop load (8
+     client threads on exponential inter-arrivals, offering more than
+     either back end serves, 256 present and 256 absent ids) against
+     per-query dispatch (one engine wave a query, behind one lock) and
+     the ``WaveScheduler`` at the config's knobs (2 replicas, 2 live
+     waves, 2 ms deadline) with the measured model, every answer equal to
+     the direct wave, the waves at least 3x per-query q/s, a fused probe
+     a segment and a fold a device wave and an extraction a device wave
+     with an answer, no ``token_hash`` and no upload (the device's busy
+     share from a second, profiled run of the load); ``store.serving()``
+     answers equal to the store's own (term, contains, batch); a durable
+     writer of the first 200,000 lines (4 MiB spills) whose snapshots two
+     reader threads serve while it ingests, every answer exact over a
+     published prefix, at least one refresh that moved the view, and
+     after ``finish()`` the whole prefix equal to phase 4's matches; and
+     ``launch/serve.py --arch dynawarp --store`` on phase 4b's directory
+     with the measured model;
   5. the CSC path: ``CscStore`` on the same lines, sized by the paper's
      protocol (the next power of two above the DynaWarp sketch's bits), its
      bits on the GPU; the same term and contains queries as one
@@ -122,6 +141,18 @@ N_TERMS, N_NEEDLES = 4096, 1024      # term wave: half present, half absent
 # comes after about 330,000 lines; 4 MiB spills 3 times in 200,000)
 N_STANDING, N_STANDING_PRESENT, SNAP_EVERY = 256, 32, 100_000
 CRASH_LINES, CRASH_MEMORY = 200_000, 4 << 20
+# phase 4c: the cost model's buckets (the config's) and reps; the open-loop
+# load (LOAD_CLIENTS threads, each offering LOAD_RATE q/s, above both back
+# ends' capacity) over LOAD_PRESENT + LOAD_ABSENT ids of the term wave; the
+# StoreServer's sample (few present ids: each one's post-filter reads
+# hundreds of batches); the live writer's prefix (cut from 1M lines for the
+# phase's time), spill limit, ingest chunk and its readers' terms
+SERVE_BUCKETS, SERVE_REPS = (8, 16, 32, 64, 128, 256), 5
+LOAD_CLIENTS, LOAD_PER_CLIENT, LOAD_RATE = 8, 400, 10_000.0
+LOAD_PRESENT, LOAD_ABSENT = 256, 256
+N_SERVE_PRESENT, N_SERVE_ABSENT, N_SERVE_NEEDLES = 4, 12, 4
+LIVE_LINES, LIVE_MEMORY, LIVE_CHUNK = 200_000, 4 << 20, 10_000
+LIVE_PRESENT, LIVE_ABSENT = 2, 6
 N_SCAN_SAMPLE = 8
 N_TOKEN_ROWS = 32_768                # a term matrix above any flush batch's
 # examples/log_search.py: the Log4Shell hunt over every store
@@ -1571,12 +1602,14 @@ def dir_bytes(path) -> dict:
     return out
 
 
-def durable_path(torch, np, dev, counters, seg) -> dict:
+def durable_path(torch, np, dev, counters, seg, tmp) -> dict:
     """Phase 4's lines and queries through the durable store: a per-spill
     publishing ingest with snapshot waves, a reopen from np.memmap (and a
     second one that must upload nothing), background compaction under
     waves, and a crash at a manifest swap, recovered, resumed and
-    finished.  Every answer is held to phase 4's."""
+    finished.  Every answer is held to phase 4's.  The stores live under
+    ``tmp``; the finished 1M-line one (``path`` of the result) stays
+    there for phase 4c."""
     from repro_torch.core import faults, serial
     from repro_torch.core.batch_builder import wave_fingerprints
     from repro_torch.core.tokenizer import term_query_tokens
@@ -1650,213 +1683,608 @@ def durable_path(torch, np, dev, counters, seg) -> dict:
         same(name, out, what)
         return dt
 
-    os.makedirs(ROOT / "build", exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="durable-", dir=ROOT / "build")
-    try:
-        reset(counters)
-        # ------------------------------------------------ durable ingest
-        path = os.path.join(tmp, "store")
-        st = DynaWarpStore(batch_lines=BATCH_LINES, mode="segmented",
-                           path=path, fsync=True, publish_per_spill=True,
-                           device=dev)
-        snaps, snap_s = [], 0.0
-        t0 = time.perf_counter()
-        for i in range(0, len(lines), SNAP_EVERY):
-            st.ingest(lines[i:i + SNAP_EVERY])
-            t = time.perf_counter()
-            snap = st.snapshot()
-            got = snap.query_term_batch(standing)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t
-            snap_s += dt
-            prefix_exact(got, snap.n_lines, f"snapshot at {st._n_lines} "
-                         f"lines")
-            snaps.append(dict(lines_in=st._n_lines, n_lines=snap.n_lines,
-                              generation=st._manifest_gen, ms=1e3 * dt))
-        st.finish()
-        ingest_s = time.perf_counter() - t0 - snap_s
-        require(any(s["n_lines"] for s in snaps),
-                "no snapshot covered a published prefix")
-        disk, publishes = dir_bytes(path), st._manifest_gen
-        index_bytes = st.index_bytes()
-        print(f"durable ingest+finish {ingest_s:.1f} s (snapshot waves "
-              f"apart), publish_s {st.stats.publish_s:.2f} s, "
-              f"{publishes} manifest publishes, {len(st.segments)} "
-              f"segments; on disk: blob file {disk['blob']}, segment files "
-              f"{disk['segments']}, manifest {disk['manifest']} bytes; "
-              f"index_bytes() {index_bytes}", flush=True)
-        print("durable snapshots (standing wave of "
-              f"{len(standing)} terms): " + ", ".join(
-                  f"{s['lines_in']} in / {s['n_lines']} published (gen "
-                  f"{s['generation']}) {s['ms']:.2f} ms" for s in snaps),
-              flush=True)
-        for name in waves_of:
-            same(name, waves_of[name](st), "durable store")
-        print("durable store: term, contains AND and OR candidates equal "
-              "phase 4's bit for bit", flush=True)
-        st.close()
-
-        # -------------------------------------------------------- reopen
+    reset(counters)
+    # ------------------------------------------------ durable ingest
+    path = os.path.join(tmp, "store")
+    st = DynaWarpStore(batch_lines=BATCH_LINES, mode="segmented",
+                       path=path, fsync=True, publish_per_spill=True,
+                       device=dev)
+    snaps, snap_s = [], 0.0
+    t0 = time.perf_counter()
+    for i in range(0, len(lines), SNAP_EVERY):
+        st.ingest(lines[i:i + SNAP_EVERY])
         t = time.perf_counter()
-        re = DynaWarpStore.open(path, mmap=True, device=dev)
-        open_s = time.perf_counter() - t
-        require(all(isinstance(s.planes, np.memmap) for s in re.segments),
-                "the reopened segments are not memmap-backed")
-        seg_files = [os.path.join(path, s._durable_file) for s in re.segments]
-        t = time.perf_counter()
-        for f in seg_files:
-            serial.load(f, mmap=True, load_source=False)
-        bare_s = time.perf_counter() - t
-        n_lists = sum(len(s.sealed_source.lists) for s in re.segments)
-        require(not any(s.has_device_cache(dev) for s in re.segments),
-                "a closed store's buffers are still staged")
-        first_s = checked_wave("term", re, "reopened")
-        upload_bytes = re.engine.device_bytes()
-        require(re.engine.upload_count == len(re.segments),
-                f"{re.engine.upload_count} uploads for {len(re.segments)} "
-                f"segments")
-        warm = {}
-        for name in waves_of:
-            dt = checked_wave(name, re, "reopened")
-            warm[name] = dict(ms=1e3 * dt, qps=len(want[name]) / dt)
-        print(f"reopen: open() {open_s:.3f} s (the segment files alone, "
-              f"without their sealed sources, {bare_s:.3f} s; the sealed "
-              f"sources' {n_lists} posting lists are one memmap view each), "
-              f"first term wave {first_s:.3f} s ({re.engine.upload_count} "
-              f"uploads from the memmapped segments, {upload_bytes} bytes); "
-              "warm " + ", ".join(f"{k} {v['ms']:.2f} ms = {v['qps']:.0f} q/s"
-                                  for k, v in warm.items())
-              + "; launches as phase 4's, answers equal", flush=True)
-        re2 = DynaWarpStore.open(path, mmap=True, device=dev)
-        require(all(s.has_device_cache(dev) for s in re2.segments),
-                "a second open() finds its segments unstaged")
-        again_s = checked_wave("term", re2, "second open")
-        require(re2.engine.upload_count == 0, f"a second open() uploaded "
-                f"{re2.engine.upload_count} segments")
-        print(f"second open() in the process: first term wave {again_s:.3f} "
-              f"s, 0 uploads, 0 bytes", flush=True)
-        big = max(re.segments, key=lambda sg: sg.n_tokens)
-        flat, lens = wave_fingerprints(term_lists, device=dev)
-        fps = re.engine._pack(flat, lens[np.flatnonzero(lens)])
-        fused_case = (big, u32_tensor(torch, np, fps.reshape(-1), dev),
-                      big.device_cache(dev),
-                      torch.zeros((fps.size, re.engine.words),
-                                  dtype=torch.int32, device=dev),
-                      f"term wave Q={fps.size} against the largest reopened "
-                      f"(memmap-backed) segment ({big.n_tokens} tokens, "
-                      f"W={big.planes.shape[1]}->{re.engine.words})")
+        snap = st.snapshot()
+        got = snap.query_term_batch(standing)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        snap_s += dt
+        prefix_exact(got, snap.n_lines, f"snapshot at {st._n_lines} "
+                     f"lines")
+        snaps.append(dict(lines_in=st._n_lines, n_lines=snap.n_lines,
+                          generation=st._manifest_gen, ms=1e3 * dt))
+    st.finish()
+    ingest_s = time.perf_counter() - t0 - snap_s
+    require(any(s["n_lines"] for s in snaps),
+            "no snapshot covered a published prefix")
+    disk, publishes = dir_bytes(path), st._manifest_gen
+    index_bytes = st.index_bytes()
+    print(f"durable ingest+finish {ingest_s:.1f} s (snapshot waves "
+          f"apart), publish_s {st.stats.publish_s:.2f} s, "
+          f"{publishes} manifest publishes, {len(st.segments)} "
+          f"segments; on disk: blob file {disk['blob']}, segment files "
+          f"{disk['segments']}, manifest {disk['manifest']} bytes; "
+          f"index_bytes() {index_bytes}", flush=True)
+    print("durable snapshots (standing wave of "
+          f"{len(standing)} terms): " + ", ".join(
+              f"{s['lines_in']} in / {s['n_lines']} published (gen "
+              f"{s['generation']}) {s['ms']:.2f} ms" for s in snaps),
+          flush=True)
+    for name in waves_of:
+        same(name, waves_of[name](st), "durable store")
+    print("durable store: term, contains AND and OR candidates equal "
+          "phase 4's bit for bit", flush=True)
+    st.close()
 
-        # -------------------------------------------- background compaction
-        bg = DynaWarpStore.open(path, background_compact=True, device=dev)
-        gen0, pre, eng0 = bg._manifest_gen, list(bg.segments), bg.engine
-        tiers = [s.size_bytes().bit_length() for s in pre]
-        answered = []            # (engine, answers) of each wave meanwhile
-        t = time.perf_counter()
-        bg.request_compact(fanout=2)
-        while bg._worker._pending or bg._worker._active:
-            eng = bg.engine
-            answered.append((eng, eng.query_batch(term_lists)))
-            torch.cuda.synchronize()
-        merges = bg.wait_compaction(timeout=600)
-        compact_s = time.perf_counter() - t
-        require(merges >= 1, f"background compaction merged nothing "
-                f"(segment size tiers {tiers})")
-        require(bg._manifest_gen > gen0, "the manifest did not advance")
-        files = set(os.listdir(path))
-        gone = {s._durable_file for s in pre
-                if all(s is not x for x in bg.segments)}
-        require(gone and not gone & files,
-                f"merged-away segment files remain: {gone & files}")
-        new = [s for s in bg.segments if all(s is not p for p in pre)]
-        # a wave of the old engine equals phase 4's candidates, one of the
-        # compacted engine that engine's host path
-        host = {}
-        for eng, got in answered:
-            if eng is eng0:
-                same("term", got, "during compaction")
-                continue
-            if id(eng) not in host:
-                host[id(eng)] = [eng.host_query(x) for x in term_lists]
-            require(all(np.array_equal(a, b)
-                        for a, b in zip(got, host[id(eng)])),
-                    "during compaction: a wave of the compacted engine "
-                    "differs from its host path")
-        exact(bg, "after compaction")
-        for op in ("and", "or"):
-            eng = bg.engine
-            for toks, c in zip(needle_toks,
-                               eng.query_batch(needle_toks, op=op)):
-                require(np.array_equal(c, eng.host_query(toks, op=op)),
-                        f"after compaction: the contains {op} wave differs "
-                        f"from the host path")
-        # the unchanged segments are staged already; the compacted engine
-        # is the only one that can have uploaded the merged ones
-        require(new and bg.engine.upload_count == len(new),
-                f"{bg.engine.upload_count} uploads for {len(new)} merged "
-                f"segments")
-        during = (sum(e is eng0 for e, _ in answered),
-                  sum(e is not eng0 for e, _ in answered))
-        print(f"background compaction: {merges} merges of {len(pre)} "
-              f"segments (size tiers {tiers}) into {len(bg.segments)}, "
-              f"{compact_s:.2f} s from request to drained, {sum(during)} "
-              f"term waves answered meanwhile ({during[0]} by the old "
-              f"engine, equal to phase 4's candidates; {during[1]} by the "
-              f"compacted one, equal to its host path), generation {gen0} "
-              f"-> {bg._manifest_gen}, files {sorted(gone)} gone, each "
-              f"merged segment uploaded once; afterwards the term wave "
-              f"equals the host path and the standing wave's matches phase "
-              f"4's", flush=True)
-        bg.close()
-        re.close()
-        re2.close()
+    # -------------------------------------------------------- reopen
+    t = time.perf_counter()
+    re = DynaWarpStore.open(path, mmap=True, device=dev)
+    open_s = time.perf_counter() - t
+    require(all(isinstance(s.planes, np.memmap) for s in re.segments),
+            "the reopened segments are not memmap-backed")
+    seg_files = [os.path.join(path, s._durable_file) for s in re.segments]
+    t = time.perf_counter()
+    for f in seg_files:
+        serial.load(f, mmap=True, load_source=False)
+    bare_s = time.perf_counter() - t
+    n_lists = sum(len(s.sealed_source.lists) for s in re.segments)
+    require(not any(s.has_device_cache(dev) for s in re.segments),
+            "a closed store's buffers are still staged")
+    first_s = checked_wave("term", re, "reopened")
+    upload_bytes = re.engine.device_bytes()
+    require(re.engine.upload_count == len(re.segments),
+            f"{re.engine.upload_count} uploads for {len(re.segments)} "
+            f"segments")
+    warm = {}
+    for name in waves_of:
+        dt = checked_wave(name, re, "reopened")
+        warm[name] = dict(ms=1e3 * dt, qps=len(want[name]) / dt)
+    print(f"reopen: open() {open_s:.3f} s (the segment files alone, "
+          f"without their sealed sources, {bare_s:.3f} s; the sealed "
+          f"sources' {n_lists} posting lists are one memmap view each), "
+          f"first term wave {first_s:.3f} s ({re.engine.upload_count} "
+          f"uploads from the memmapped segments, {upload_bytes} bytes); "
+          "warm " + ", ".join(f"{k} {v['ms']:.2f} ms = {v['qps']:.0f} q/s"
+                              for k, v in warm.items())
+          + "; launches as phase 4's, answers equal", flush=True)
+    re2 = DynaWarpStore.open(path, mmap=True, device=dev)
+    require(all(s.has_device_cache(dev) for s in re2.segments),
+            "a second open() finds its segments unstaged")
+    again_s = checked_wave("term", re2, "second open")
+    require(re2.engine.upload_count == 0, f"a second open() uploaded "
+            f"{re2.engine.upload_count} segments")
+    print(f"second open() in the process: first term wave {again_s:.3f} "
+          f"s, 0 uploads, 0 bytes", flush=True)
+    big = max(re.segments, key=lambda sg: sg.n_tokens)
+    flat, lens = wave_fingerprints(term_lists, device=dev)
+    fps = re.engine._pack(flat, lens[np.flatnonzero(lens)])
+    fused_case = (big, u32_tensor(torch, np, fps.reshape(-1), dev),
+                  big.device_cache(dev),
+                  torch.zeros((fps.size, re.engine.words),
+                              dtype=torch.int32, device=dev),
+                  f"term wave Q={fps.size} against the largest reopened "
+                  f"(memmap-backed) segment ({big.n_tokens} tokens, "
+                  f"W={big.planes.shape[1]}->{re.engine.words})")
 
-        # ----------------------------------------------- crash and resume
-        cpath = os.path.join(tmp, "crash")
-        prefix = lines[:CRASH_LINES]
-        w = DynaWarpStore(batch_lines=BATCH_LINES, mode="segmented",
-                          path=cpath, fsync=True,
-                          memory_limit_bytes=CRASH_MEMORY, device=dev)
-        crashed = False
-        with faults.inject(crash_at="manifest.replace", after=1) as inj:
+    # -------------------------------------------- background compaction
+    bg = DynaWarpStore.open(path, background_compact=True, device=dev)
+    gen0, pre, eng0 = bg._manifest_gen, list(bg.segments), bg.engine
+    tiers = [s.size_bytes().bit_length() for s in pre]
+    answered = []            # (engine, answers) of each wave meanwhile
+    t = time.perf_counter()
+    bg.request_compact(fanout=2)
+    while bg._worker._pending or bg._worker._active:
+        eng = bg.engine
+        answered.append((eng, eng.query_batch(term_lists)))
+        torch.cuda.synchronize()
+    merges = bg.wait_compaction(timeout=600)
+    compact_s = time.perf_counter() - t
+    require(merges >= 1, f"background compaction merged nothing "
+            f"(segment size tiers {tiers})")
+    require(bg._manifest_gen > gen0, "the manifest did not advance")
+    files = set(os.listdir(path))
+    gone = {s._durable_file for s in pre
+            if all(s is not x for x in bg.segments)}
+    require(gone and not gone & files,
+            f"merged-away segment files remain: {gone & files}")
+    new = [s for s in bg.segments if all(s is not p for p in pre)]
+    # a wave of the old engine equals phase 4's candidates, one of the
+    # compacted engine that engine's host path
+    host = {}
+    for eng, got in answered:
+        if eng is eng0:
+            same("term", got, "during compaction")
+            continue
+        if id(eng) not in host:
+            host[id(eng)] = [eng.host_query(x) for x in term_lists]
+        require(all(np.array_equal(a, b)
+                    for a, b in zip(got, host[id(eng)])),
+                "during compaction: a wave of the compacted engine "
+                "differs from its host path")
+    exact(bg, "after compaction")
+    for op in ("and", "or"):
+        eng = bg.engine
+        for toks, c in zip(needle_toks,
+                           eng.query_batch(needle_toks, op=op)):
+            require(np.array_equal(c, eng.host_query(toks, op=op)),
+                    f"after compaction: the contains {op} wave differs "
+                    f"from the host path")
+    # the unchanged segments are staged already; the compacted engine
+    # is the only one that can have uploaded the merged ones
+    require(new and bg.engine.upload_count == len(new),
+            f"{bg.engine.upload_count} uploads for {len(new)} merged "
+            f"segments")
+    during = (sum(e is eng0 for e, _ in answered),
+              sum(e is not eng0 for e, _ in answered))
+    print(f"background compaction: {merges} merges of {len(pre)} "
+          f"segments (size tiers {tiers}) into {len(bg.segments)}, "
+          f"{compact_s:.2f} s from request to drained, {sum(during)} "
+          f"term waves answered meanwhile ({during[0]} by the old "
+          f"engine, equal to phase 4's candidates; {during[1]} by the "
+          f"compacted one, equal to its host path), generation {gen0} "
+          f"-> {bg._manifest_gen}, files {sorted(gone)} gone, each "
+          f"merged segment uploaded once; afterwards the term wave "
+          f"equals the host path and the standing wave's matches phase "
+          f"4's", flush=True)
+    bg.close()
+    re.close()
+    re2.close()
+
+    # ----------------------------------------------- crash and resume
+    cpath = os.path.join(tmp, "crash")
+    prefix = lines[:CRASH_LINES]
+    w = DynaWarpStore(batch_lines=BATCH_LINES, mode="segmented",
+                      path=cpath, fsync=True,
+                      memory_limit_bytes=CRASH_MEMORY, device=dev)
+    crashed = False
+    with faults.inject(crash_at="manifest.replace", after=1) as inj:
+        try:
+            w.ingest(prefix)
+            w.finish()
+        except faults.CrashError:
+            crashed = True
+    require(crashed and inj.fired == 1,
+            "no crash at the second manifest swap")
+    w.blobs.close()                 # the dead writer's file
+    with open(os.path.join(cpath, MANIFEST_NAME)) as f:
+        man = json.load(f)
+    t = time.perf_counter()
+    rec = DynaWarpStore.open(cpath, device=dev)
+    crash_open_s = time.perf_counter() - t
+    recovered = rec._n_lines
+    require(not rec._finished and recovered == man["n_lines"]
+            == man["batch_start"][-1] > 0,
+            f"open() after the crash recovered {recovered} lines, the "
+            f"manifest holds {man['n_lines']}")
+    rec.ingest(prefix[recovered:])
+    rec.finish()
+    prefix_exact(rec.query_term_batch(standing), CRASH_LINES,
+                 "crash -> open -> resume -> finish")
+    rec.close()
+    print(f"crash at the second manifest swap of {CRASH_LINES} lines "
+          f"({CRASH_MEMORY >> 10} KiB spills): open() {crash_open_s:.3f}"
+          f" s, {recovered} lines recovered, resumed and finished, "
+          f"matches equal phase 4's below line {CRASH_LINES}", flush=True)
+    launches = read(counters)
+    return dict(launches=launches, fused_case=fused_case, path=path,
+                summary=dict(
+                    ingest_s=ingest_s, publish_s=st.stats.publish_s,
+                    publishes=publishes, disk_bytes=disk,
+                    index_bytes=index_bytes, snapshots=snaps, open_s=open_s,
+                    open_files_without_sources_s=bare_s,
+                    sealed_lists=n_lists, first_wave_s=first_s,
+                    upload_bytes=upload_bytes, uploads=len(re.segments),
+                    warm=warm, second_open_wave_s=again_s,
+                    compaction=dict(merges=merges, s=compact_s,
+                                    waves_old_engine=during[0],
+                                    waves_new_engine=during[1], tiers=tiers),
+                    crash=dict(open_s=crash_open_s,
+                               recovered_lines=recovered)))
+
+
+# --------------------------------------------------------------- phase 4c
+class PerQueryServer:
+    """The baseline of the load: a request queue drained by workers that
+    run ONE engine wave per query (``query_fps_batch`` of one: no
+    coalescing, no host shortcut), behind one lock, as a store without a
+    serving layer would."""
+
+    def __init__(self, engine, n_workers: int):
+        import queue
+        import threading
+        self.engine = engine
+        self._lock = threading.Lock()
+        self._q = queue.Queue()
+        self._workers = [threading.Thread(target=self._drain, daemon=True)
+                         for _ in range(n_workers)]
+        for w in self._workers:
+            w.start()
+
+    def submit(self, tokens):
+        from repro_torch.core.serving import WaveTicket, _as_fp
+        ticket = WaveTicket([_as_fp(t) for t in tokens], "and")
+        ticket.t_submit = time.monotonic()
+        self._q.put(ticket)
+        return ticket
+
+    def _drain(self) -> None:
+        while True:
+            ticket = self._q.get()
+            if ticket is None:
+                return
             try:
-                w.ingest(prefix)
-                w.finish()
-            except faults.CrashError:
-                crashed = True
-        require(crashed and inj.fired == 1,
-                "no crash at the second manifest swap")
-        w.blobs.close()                 # the dead writer's file
-        with open(os.path.join(cpath, MANIFEST_NAME)) as f:
-            man = json.load(f)
-        t = time.perf_counter()
-        rec = DynaWarpStore.open(cpath, device=dev)
-        crash_open_s = time.perf_counter() - t
-        recovered = rec._n_lines
-        require(not rec._finished and recovered == man["n_lines"]
-                == man["batch_start"][-1] > 0,
-                f"open() after the crash recovered {recovered} lines, the "
-                f"manifest holds {man['n_lines']}")
-        rec.ingest(prefix[recovered:])
-        rec.finish()
-        prefix_exact(rec.query_term_batch(standing), CRASH_LINES,
-                     "crash -> open -> resume -> finish")
-        rec.close()
-        print(f"crash at the second manifest swap of {CRASH_LINES} lines "
-              f"({CRASH_MEMORY >> 10} KiB spills): open() {crash_open_s:.3f}"
-              f" s, {recovered} lines recovered, resumed and finished, "
-              f"matches equal phase 4's below line {CRASH_LINES}", flush=True)
-        launches = read(counters)
+                with self._lock:
+                    res = self.engine.query_fps_batch([ticket.fps])[0]
+            except BaseException as e:      # reaches the client's wait()
+                ticket._fail(e, -1)
+            else:
+                ticket._complete(res, -1, "device")
+
+    def close(self) -> None:
+        for _ in self._workers:
+            self._q.put(None)
+        for w in self._workers:
+            w.join(timeout=60)
+            require(not w.is_alive(), "a per-query worker hung")
+
+
+def open_loop(np, submit, token_lists, seed) -> tuple[dict, list]:
+    """Drive ``submit`` from LOAD_CLIENTS open-loop threads, each on
+    exponential inter-arrivals at LOAD_RATE q/s (arrivals fire whatever
+    the completions, so queueing is part of every latency sample, the
+    client's own lag behind its schedule included).  Returns q/s, the
+    rate the clients reached, latency percentiles from the scheduled
+    arrival and from the submit, and each request's (query index,
+    ticket)."""
+    import threading
+    t_start = time.monotonic() + 0.05
+    collected = [[] for _ in range(LOAD_CLIENTS)]
+
+    def client(ci: int) -> None:
+        rng = np.random.default_rng(seed + ci)
+        arrivals = t_start + np.cumsum(
+            rng.exponential(1.0 / LOAD_RATE, size=LOAD_PER_CLIENT))
+        for at in arrivals:
+            now = time.monotonic()
+            if at > now:
+                time.sleep(at - now)
+            qi = int(rng.integers(len(token_lists)))
+            collected[ci].append((at, qi, submit(token_lists[qi])))
+
+    threads = [threading.Thread(target=client, args=(ci,), daemon=True)
+               for ci in range(LOAD_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+        require(not th.is_alive(), "a load client hung")
+    flat = [x for per in collected for x in per]
+    for _, _, t in flat:
+        t.wait(600)                 # a failed wave's error fails the phase
+    lat_ms = np.asarray([(t.t_done - at) * 1e3 for at, _, t in flat])
+    served_ms = np.asarray([(t.t_done - t.t_submit) * 1e3
+                            for _, _, t in flat])
+    first = min(at for at, _, _ in flat)
+    last = max(t.t_done for _, _, t in flat)
+    last_submit = max(t.t_submit for _, _, t in flat)
+    return (dict(completed=len(flat), window_s=last - first,
+                 qps=len(flat) / (last - first),
+                 submitted_qps=len(flat) / (last_submit - first),
+                 p50_ms=float(np.percentile(lat_ms, 50)),
+                 p99_ms=float(np.percentile(lat_ms, 99)),
+                 submit_p50_ms=float(np.percentile(served_ms, 50)),
+                 submit_p99_ms=float(np.percentile(served_ms, 99))),
+            [(qi, t) for _, qi, t in flat])
+
+
+def consistent_with_some_prefix(batch, truth_lines, total) -> bool:
+    """Every term's matches are a prefix of its full truth, and one common
+    cut line explains the whole batch (it was answered against ONE view):
+    ``tests/test_serving.py``'s invariant."""
+    lo, hi = 0, total
+    for matches, full in zip(batch, truth_lines):
+        if matches != full[:len(matches)]:
+            return False
+        lo = max(lo, matches[-1] + 1 if matches else 0)
+        hi = min(hi, full[len(matches)] if len(matches) < len(full)
+                 else total)
+    return lo <= hi
+
+
+def serve_path(torch, np, dev, counters, seg, durable) -> dict:
+    """The serving front end on phase 4's 1M-line store: the cost model
+    measured on the card, an open-loop load against per-query dispatch and
+    the wave scheduler, ``StoreServer`` answers against the store's own, a
+    live durable writer's snapshots served to reader threads, and the
+    ``--arch dynawarp --store`` entry point on phase 4b's directory."""
+    import collections
+    import contextlib
+    import io
+    import threading
+
+    from repro_torch.configs import DYNAWARP_CONFIG as cfg
+    from repro_torch.core.serving import (CostModel, WaveScheduler,
+                                          measure_dispatch_costs)
+    from repro_torch.core.tokenizer import term_query_tokens
+    from repro_torch.kernels.bitmap_extract.ops import bitmap_extract_ragged
+    from repro_torch.kernels.bitset_ops.ops import bitset_reduce_ragged
+    from repro_torch.kernels.sketch_probe.ops import match_planes
+    from repro_torch.launch import serve
+    from repro_torch.logstore.store import DynaWarpStore
+
+    store, eng, terms = seg["store"], seg["store"].engine, seg["terms"]
+    half = len(terms) // 2
+    present, absent = terms[:half], terms[half:]
+    # present and absent ids in turns, so that the cost model's host
+    # sample (the mix's head) holds both kinds
+    mix = [t for pair in zip(present[:LOAD_PRESENT], absent[:LOAD_ABSENT])
+           for t in pair]
+    mix_lists = [term_query_tokens(t) for t in mix]
+    # what the store answers by itself, before the path's window
+    mix_truth = store.candidates_term_batch(mix)
+    one_terms = present[:N_SERVE_PRESENT] + absent[:N_SERVE_ABSENT]
+    batch_terms = present[N_SERVE_PRESENT:2 * N_SERVE_PRESENT] + absent[
+        N_SERVE_ABSENT:2 * N_SERVE_ABSENT]
+    needles = seg["needles"][:N_SERVE_NEEDLES]
+    want_one = [store.query_term(t) for t in one_terms]
+    want_contains = [store.query_contains(n) for n in needles]
+    want_batch = store.query_term_batch(batch_terms)
+    live_terms = present[:LIVE_PRESENT] + absent[:LIVE_ABSENT]
+    live_truth = [[m for m in r.matches if m < LIVE_LINES]
+                  for r in store.query_term_batch(live_terms)]
+    uploads0 = eng.upload_count
+    entries = (match_planes, bitset_reduce_ragged, bitmap_extract_ragged)
+
+    reset(counters)
+    # ------------------------------------------------------- cost model
+    t0 = time.perf_counter()
+    model = measure_dispatch_costs(eng, mix_lists, buckets=SERVE_BUCKETS,
+                                   reps=SERVE_REPS, host_samples=64)
+    cost_s = time.perf_counter() - t0
+    require(model["backend"] == "cuda", f"the cost model was measured on "
+            f"{model['backend']}")
+    model_path = ROOT / "build" / "bench_costmodel.json"
+    model_path.write_text(json.dumps(model, indent=1))
+    cm = CostModel.load(str(model_path))
+    crossover = [b for b in SERVE_BUCKETS if not cm.prefer_host(b, b)]
+    print(f"serve cost model (measured on the card, {cost_s:.1f} s, median "
+          f"of {SERVE_REPS}): {json.dumps(model)}; a full bucket goes to "
+          f"the device from Q {crossover[0] if crossover else 'never'}",
+          flush=True)
+
+    # ----------------------------------------------------- open-loop load
+    direct = PerQueryServer(eng, n_workers=4)
+    try:
+        for tl in mix_lists[:2]:
+            direct.submit(tl).wait(120)                 # warm
+        base, base_res = open_loop(np, direct.submit, mix_lists, SEED)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return dict(launches=launches, fused_case=fused_case, summary=dict(
-        ingest_s=ingest_s, publish_s=st.stats.publish_s, publishes=publishes,
-        disk_bytes=disk, index_bytes=index_bytes, snapshots=snaps,
-        open_s=open_s, open_files_without_sources_s=bare_s,
-        sealed_lists=n_lists, first_wave_s=first_s, upload_bytes=upload_bytes,
-        uploads=len(re.segments), warm=warm, second_open_wave_s=again_s,
-        compaction=dict(merges=merges, s=compact_s, waves_old_engine=during[0],
-                        waves_new_engine=during[1], tiers=tiers),
-        crash=dict(open_s=crash_open_s, recovered_lines=recovered)))
+        direct.close()
+    replicas = [eng] + [eng.clone() for _ in range(cfg.serve_replicas - 1)]
+    sched = WaveScheduler(replicas, bucket_sizes=cfg.wave_bucket_sizes,
+                          flush_deadline_s=cfg.flush_deadline_s,
+                          max_live_waves=cfg.max_live_waves,
+                          max_pending=cfg.serve_max_pending, cost_model=cm)
+    try:
+        sched.query_batch(mix_lists[:cfg.wave_bucket_sizes[-1]],
+                          timeout=120)                  # warm
+        st0, before = sched.stats(), read(counters)
+        at = [e.launch_count for e in entries]
+        waves, wave_res = open_loop(np, sched.submit, mix_lists, SEED)
+        st1, after = sched.stats(), read(counters)
+        fused, fold, extract = (e.launch_count - a
+                                for e, a in zip(entries, at))
+        # the device's busy share, in a second run of the same load under
+        # the profiler (which slows the host: its q/s is not reported)
+        profiled = []
+        wall_ms, busy_ms = device_busy(torch, lambda: profiled.append(
+            open_loop(np, sched.submit, mix_lists, SEED + 99)))
+        st2 = sched.stats()
+    finally:
+        sched.close()
+    for name, res in (("per-query", base_res), ("waves", wave_res),
+                      ("profiled waves", profiled[0][1])):
+        for qi, t in res:
+            require(np.array_equal(t.wait(0), mix_truth[qi]),
+                    f"{name}: an answer differs from the direct wave")
+    n = {k: after[k] - before[k] for k in after}
+    device_waves = st1.device_waves - st0.device_waves
+    host_waves = st1.host_waves - st0.host_waves
+    answered = {t.wave_id for _, t in wave_res
+                if t.via == "device" and t.wait(0).size}
+    require(st2.failed == 0, f"{st2.failed} queries failed")
+    require(device_waves > 0, "no wave of the load went to the device")
+    require(len({t.wave_id for _, t in wave_res if t.via == "device"})
+            == device_waves, "device waves counted twice")
+    n_planes = len(eng._plane_segs)
+    require(fused == n["sketch_probe"] == n_planes * device_waves,
+            f"{fused} fused probes ({n['sketch_probe']} sketch_probe "
+            f"launches) for {device_waves} device waves of {n_planes} "
+            f"segments")
+    require(fold == n["bitset_reduce_batch"] == device_waves,
+            f"{fold} ragged folds for {device_waves} device waves")
+    require(extract == n["bitmap_extract"] == len(answered),
+            f"{extract} ragged extractions for {len(answered)} device waves "
+            f"with an answer")
+    require(n["token_hash"] == 0, "a served wave launched token_hash")
+    speedup = waves["qps"] / base["qps"]
+    require(speedup >= 3.0, f"coalesced waves only {speedup:.2f}x the q/s "
+            f"of per-query dispatch (< 3x)")
+    require(eng.upload_count == uploads0 and all(
+        r.upload_count == 0 for r in replicas[1:]),
+        "a served wave uploaded a segment again")
+    hist = {}                       # waves of the window by Q bucket
+    for k in collections.Counter(t.wave_id for _, t in wave_res).values():
+        b = next(x for x in cfg.wave_bucket_sizes if x >= k)
+        hist[b] = hist.get(b, 0) + 1
+    hist = dict(sorted(hist.items()))
+    load = dict(
+        clients=LOAD_CLIENTS, per_client=LOAD_PER_CLIENT,
+        offered_qps=LOAD_CLIENTS * LOAD_RATE, mix=len(mix),
+        per_query=base, waves=waves, speedup=speedup,
+        waves_formed=st1.waves - st0.waves, host_waves=host_waves,
+        device_waves=device_waves,
+        device_waves_with_answer=len(answered), max_wave=st1.max_wave,
+        padded_slots=st1.padded_slots - st0.padded_slots,
+        size_flushes=st1.size_flushes - st0.size_flushes,
+        deadline_flushes=st1.deadline_flushes - st0.deadline_flushes,
+        wave_sizes_by_bucket=hist, replica_waves={
+            r: v - st0.replica_waves.get(r, 0)
+            for r, v in st1.replica_waves.items()},
+        launches=dict(fused=fused, fold=fold, extract=extract),
+        profiled_wall_ms=wall_ms, device_busy_ms=busy_ms)
+    for name, r in (("per-query dispatch", base), ("coalesced waves", waves)):
+        print(f"serve load, {name}: {r['completed']} queries in "
+              f"{r['window_s']:.3f} s = {r['qps']:.0f} q/s (the clients "
+              f"submitted {r['submitted_qps']:.0f} q/s), p50 "
+              f"{r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms from the "
+              f"scheduled arrival; from the submit p50 "
+              f"{r['submit_p50_ms']:.2f} ms, p99 {r['submit_p99_ms']:.2f} "
+              f"ms", flush=True)
+    print(f"serve load: {LOAD_CLIENTS} open-loop clients scheduled at "
+          f"{LOAD_CLIENTS * LOAD_RATE:.0f} q/s in all (past what either "
+          f"back end or the clients themselves reach), {len(mix)} distinct "
+          f"queries ({LOAD_PRESENT} present, "
+          f"{LOAD_ABSENT} absent ids), every answer equal to the direct "
+          f"wave; waves {speedup:.1f}x per-query q/s; {load['waves_formed']} "
+          f"waves ({host_waves} host / {device_waves} device, "
+          f"{len(answered)} with an answer), max wave {st1.max_wave}, padded "
+          f"slots {load['padded_slots']}, waves by bucket {hist}, "
+          f"{load['size_flushes']} size / {load['deadline_flushes']} "
+          f"deadline flushes, waves by replica {load['replica_waves']}; "
+          f"launches {fused} fused probes, {fold} folds, {extract} "
+          f"extractions ({n_planes} / 1 / 1 a device wave with an answer); "
+          f"device busy "
+          f"{busy_text(wall_ms, busy_ms)} in a profiled run of the same "
+          f"load", flush=True)
+
+    # ---------------------------------------------- StoreServer answers
+    t0 = time.perf_counter()
+    with store.serving(n_replicas=2, cost_model=cm) as server:
+        for t, want in zip(one_terms, want_one):
+            got = server.query_term(t, timeout=300)
+            require(got.matches == want.matches and np.array_equal(
+                got.candidate_batches, want.candidate_batches),
+                f"StoreServer.query_term({t!r}) differs from the store's")
+        for nd, want in zip(needles, want_contains):
+            got = server.query_contains(nd, timeout=300)
+            require(got.matches == want.matches,
+                    f"StoreServer.query_contains({nd!r}) differs")
+        got = server.query_term_batch(batch_terms, timeout=300)
+        require([r.matches for r in got] == [r.matches for r in want_batch],
+                "StoreServer.query_term_batch differs from the store's")
+    sst = server.scheduler.stats()
+    answers_s = time.perf_counter() - t0
+    print(f"StoreServer (2 replicas): {len(one_terms)} query_term "
+          f"({N_SERVE_PRESENT} present), {len(needles)} query_contains and "
+          f"a query_term_batch of {len(batch_terms)} equal the store's own "
+          f"answers; {sst.waves} waves ({sst.host_waves} host / "
+          f"{sst.device_waves} device), {answers_s:.1f} s", flush=True)
+
+    # ----------------------------------------------------- live serving
+    lpath = os.path.join(os.path.dirname(durable["path"]), "live")
+    lines = seg["ds"].lines[:LIVE_LINES]
+    w = DynaWarpStore(batch_lines=BATCH_LINES, mode="segmented", path=lpath,
+                      fsync=True, publish_per_spill=True,
+                      memory_limit_bytes=LIVE_MEMORY, device=dev)
+    t0 = time.perf_counter()
+    pos = 0
+    while w.snapshot().engine is None:          # a first published prefix
+        w.ingest(lines[pos:pos + LIVE_CHUNK])
+        pos += LIVE_CHUNK
+    first_published = w.snapshot().n_lines
+    server = w.serving(n_replicas=2, cost_model=cm)
+    errors, checks, moved, seen = [], [0, 0], [0, 0], set()
+    done = threading.Event()
+
+    def reader(ci: int) -> None:           # counts in its own slots
+        while not done.is_set() or checks[ci] == 0:
+            moved[ci] += server.refresh()
+            view = server.view
+            try:
+                batch = [r.matches for r in server.query_term_batch(
+                    live_terms, timeout=300)]
+            except Exception as e:          # fails the phase below
+                errors.append(repr(e))
+                return
+            if not consistent_with_some_prefix(batch, live_truth,
+                                               LIVE_LINES):
+                errors.append(f"reader {ci}: answers exact over no "
+                              f"published prefix")
+                return
+            seen.add(view.n_lines)
+            checks[ci] += 1
+
+    readers = [threading.Thread(target=reader, args=(ci,), daemon=True)
+               for ci in range(2)]
+    try:
+        for rt in readers:
+            rt.start()
+        try:
+            for i in range(pos, LIVE_LINES, LIVE_CHUNK):
+                w.ingest(lines[i:i + LIVE_CHUNK])
+            w.finish()
+        finally:
+            done.set()
+            for rt in readers:
+                rt.join(timeout=600)
+                require(not rt.is_alive(), "a live reader hung")
+        checks, moved = sum(checks), sum(moved)
+        require(not errors, f"live serving: {errors[:3]}")
+        require(checks > 0 and moved > 0, f"live serving: {checks} checked "
+                f"batches, {moved} refreshes moved the view")
+        server.refresh()
+        require(server.view.n_lines == LIVE_LINES, f"the final view holds "
+                f"{server.view.n_lines} of {LIVE_LINES} lines")
+        final = [r.matches for r in server.query_term_batch(live_terms,
+                                                            timeout=300)]
+        require(final == live_truth, "the final view's answers differ from "
+                "phase 4's matches below the prefix")
+        lst = server.scheduler.stats()
+    finally:
+        server.close()
+        w.close()
+    live_s = time.perf_counter() - t0
+    live = dict(lines=LIVE_LINES, s=live_s, first_published=first_published,
+                checks=checks, refreshes_moved=moved,
+                views=sorted(seen), waves=lst.waves,
+                host_waves=lst.host_waves, device_waves=lst.device_waves)
+    print(f"live serving: a durable writer ({LIVE_MEMORY >> 20} MiB spills, "
+          f"publish per spill) of the first {LIVE_LINES} lines, 2 readers: "
+          f"{checks} batches of {len(live_terms)} terms each exact over a "
+          f"published prefix (views of {sorted(seen)} lines), "
+          f"{moved} refreshes moved the view, then the whole prefix "
+          f"equal to phase 4's matches; {lst.waves} waves ({lst.host_waves} "
+          f"host / {lst.device_waves} device), {live_s:.1f} s", flush=True)
+
+    # -------------------------------------------------- the entry point
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--arch", "dynawarp", "--store", durable["path"],
+                         "--cost-model", str(model_path)])
+    entry_s = time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="", flush=True)
+    require(rc == 0 and " q/s)  p50 " in out and "p99 " in out,
+            f"serve --arch dynawarp --store returned {rc}")
+    qline = next(ln for ln in out.splitlines() if " q/s)" in ln)
+    launches = read(counters)
+    return dict(launches=launches, summary=dict(
+        cost_model=model, cost_model_s=cost_s, load=load,
+        store_server=dict(waves=sst.waves, host_waves=sst.host_waves,
+                          device_waves=sst.device_waves, s=answers_s),
+        live=live, entry_point=dict(s=entry_s, line=qline)))
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2196,14 +2624,24 @@ def main() -> int:
                  "token_hash"):
         require(seg["launches"][name] > 0,
                 f"the segmented path never launched {name}")
-    durable = durable_path(torch, np, dev, counters, seg)
-    paths["durable"] = durable["launches"]
-    for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
-                 "token_hash"):
-        require(durable["launches"][name] > 0,
-                f"the durable path never launched {name}")
-    kernels["sketch_probe"]["at_reopen"] = hold_fused(
-        torch, np, [durable["fused_case"]], flush)
+    os.makedirs(ROOT / "build", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="durable-", dir=ROOT / "build")
+    try:
+        durable = durable_path(torch, np, dev, counters, seg, tmp)
+        paths["durable"] = durable["launches"]
+        for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
+                     "token_hash"):
+            require(durable["launches"][name] > 0,
+                    f"the durable path never launched {name}")
+        kernels["sketch_probe"]["at_reopen"] = hold_fused(
+            torch, np, [durable["fused_case"]], flush)
+        served = serve_path(torch, np, dev, counters, seg, durable)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths["serve"] = served["launches"]
+    for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract"):
+        require(served["launches"][name] > 0,
+                f"the serve path never launched {name}")
     csc = csc_path(torch, np, dev, counters, seg)
     paths["csc"] = csc["launches"]
     for name in ("token_hash", "csc_probe"):
@@ -2269,6 +2707,7 @@ def main() -> int:
                           segmented=dict(ingest_s=seg_summary["ingest_s"],
                                          waves=seg_summary["waves"]),
                           durable=durable["summary"],
+                          serve=served["summary"],
                           csc=csc, log_search=hunt["stores"], lm=lm,
                           recsys=rec)))
     print(json.dumps({"kernels": rows, "launch_floor_ms": floor_ms}))

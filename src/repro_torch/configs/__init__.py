@@ -1,9 +1,13 @@
 """Architecture registry: ``get_arch(id)`` / ``ARCHS`` back --arch flags.
 
 Only the ported architectures are registered; the JAX package's other ids
-raise "not yet ported"."""
+raise "not yet ported".  The paper's own config (dynawarp/copr) is
+``DYNAWARP_CONFIG``, not an arch."""
 from . import llama3_8b, two_tower, xdeepfm
 from .base import ArchSpec, ShapeSpec
+from .dynawarp import CONFIG as DYNAWARP_CONFIG
+from .dynawarp import SMOKE as DYNAWARP_SMOKE
+from .dynawarp import DynaWarpConfig
 
 ARCHS: dict[str, ArchSpec] = {
     spec.id: spec for spec in (llama3_8b.SPEC, two_tower.SPEC, xdeepfm.SPEC)}
@@ -16,7 +20,8 @@ def get_arch(arch_id: str) -> ArchSpec:
     if arch_id in ("dynawarp", "copr"):
         raise ValueError(
             "dynawarp/copr is the paper's log-store config, not a model "
-            "arch; use the logstore API")
+            "arch; use repro_torch.configs.DYNAWARP_CONFIG / the logstore "
+            "API")
     if arch_id in NOT_YET_PORTED:
         raise NotImplementedError(f"arch {arch_id!r} is not yet ported")
     if arch_id not in ARCHS:
@@ -24,4 +29,5 @@ def get_arch(arch_id: str) -> ArchSpec:
     return ARCHS[arch_id]
 
 
-__all__ = ["ARCHS", "ArchSpec", "ShapeSpec", "get_arch"]
+__all__ = ["ARCHS", "ArchSpec", "DYNAWARP_CONFIG", "DYNAWARP_SMOKE",
+           "DynaWarpConfig", "ShapeSpec", "get_arch"]

@@ -1,17 +1,16 @@
 """Quickstart: ingest logs, seal the segment, run term/contains queries,
-then make the store durable — save to disk, reopen, query again — and
-finally survive a crash mid-ingest (open() the unfinished store, resume
-appending, finish()).
+then make the store durable — save to disk, reopen, query again —
+survive a crash mid-ingest (open() the unfinished store, resume
+appending, finish()), and finally serve the store to concurrent clients
+through the wave-coalescing front end (serving()).
 
     PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
-
-The JAX package's quickstart also serves the store (``serving()``); the
-port's serving front end is not ported yet, so that step is left out.
 """
 import argparse
 import os
 import sys
 import tempfile
+import threading
 
 from repro_torch.logstore.datasets import generate_dataset
 from repro_torch.logstore.store import DynaWarpStore
@@ -102,7 +101,32 @@ def main(argv=None) -> int:
               f"{r.matches == alice}")
         resumed.close()
 
-    # 9. (the JAX package serves the store here; serving() is not ported)
+    # 9. serve it: store.serving() puts a wave-coalescing scheduler in
+    # front of the engine — concurrent clients' queries group into
+    # shape-bucketed waves (deadline- or size-flushed, max_live_waves
+    # admission control), and a cost model picks the host or device path
+    # per wave.  core.serving.measure_dispatch_costs measures one on the
+    # card; pass cost_model=CostModel.load(path) to use it.
+    seg_store = DynaWarpStore(batch_lines=128, mode="segmented",
+                              memory_limit_bytes=1 << 16, device=dev)
+    seg_store.ingest(ds.lines)
+    seg_store.finish()
+    hits: list[int] = []
+    with seg_store.serving(n_replicas=2, flush_deadline_s=0.005) as server:
+        def client():
+            for term in ("alice", "jndi", "error"):
+                hits.append(len(server.query_term(term, timeout=60).matches))
+
+        clients = [threading.Thread(target=client) for _ in range(8)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=120)
+    st = server.scheduler.stats()
+    print(f"served {st.completed} queries from {len(clients)} clients in "
+          f"{st.waves} coalesced waves ({st.host_waves} host / "
+          f"{st.device_waves} device, max wave {st.max_wave}), answers "
+          f"match direct queries: {hits.count(len(alice)) >= 8}")
     return 0
 
 

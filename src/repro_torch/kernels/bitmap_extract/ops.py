@@ -51,7 +51,7 @@ def bitmap_extract(bitmaps: torch.Tensor, *, max_hits: int
             err = fn(bitmaps.data_ptr(), q, w, max_hits, ids.data_ptr(),
                      counts.data_ptr(), build.stream_of(bitmaps))
         build.check(lib, err, "bitmap_extract")
-        bitmap_extract.launch_count += 1
+        build.count_launch(bitmap_extract)
     return ids, counts
 
 
@@ -88,7 +88,7 @@ def bitmap_extract_ragged(bitmaps: torch.Tensor, offsets: torch.Tensor,
             err = fn(bitmaps.data_ptr(), q, w, offsets.data_ptr(), total,
                      ids.data_ptr(), build.stream_of(bitmaps))
         build.check(lib, err, "bitmap_extract_ragged")
-        bitmap_extract_ragged.launch_count += 1
+        build.count_launch(bitmap_extract_ragged)
     return ids
 
 

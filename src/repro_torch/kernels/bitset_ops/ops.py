@@ -73,7 +73,7 @@ def bitset_reduce_batch(planes: torch.Tensor, *, op: str = "and"
     if q == 0:      # nothing to launch for
         return _empty(0, w, planes.device)
     out = _launch(planes, None, q, op)
-    bitset_reduce_batch.launch_count += 1
+    build.count_launch(bitset_reduce_batch)
     return out
 
 
@@ -98,7 +98,7 @@ def bitset_reduce_ragged(planes: torch.Tensor, lens: torch.Tensor, *,
     if q == 0:
         return _empty(0, w, planes.device)
     out = _launch(planes, lens, q, op)
-    bitset_reduce_ragged.launch_count += 1
+    build.count_launch(bitset_reduce_ragged)
     return out
 
 
@@ -110,7 +110,7 @@ def bitset_reduce(planes: torch.Tensor, *, op: str = "and"
     if planes.device.type == "cpu":
         return bitset_reduce_ref(planes, op=op)
     out, counts = _launch(planes[None], None, 1, op)
-    bitset_reduce.launch_count += 1
+    build.count_launch(bitset_reduce)
     return out[0], counts[0]
 
 

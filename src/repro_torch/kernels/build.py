@@ -5,7 +5,9 @@ a plain C interface, loaded with ctypes: no PyTorch headers, so a build
 takes seconds.  The build happens at first use, into ``build/kernels/``
 at the repository root, one nvcc process per source, all started together.
 A library is named by a digest of its source and flags, so an edited
-source builds anew and an unchanged one is reused.
+source builds anew and an unchanged one is reused.  One lock serializes
+building and loading, so threads whose first launches come together
+build each library once.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -24,6 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# held by build() and library(), which calls build(): hence reentrant
+_BUILD_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -43,6 +49,11 @@ def build(names=SOURCES, *, ptxas_verbose: bool = False) -> dict[str, str]:
     ``ptxas_verbose``, every one: a library from an earlier build has no
     report), all nvcc processes at once.  Returns each compiled source's
     compiler output; raises with that output if any compile fails."""
+    with _BUILD_LOCK:
+        return _build(names, ptxas_verbose)
+
+
+def _build(names, ptxas_verbose: bool) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
     for name in names:
@@ -99,13 +110,23 @@ def build_variants(srcs) -> dict[str, tuple[ctypes.CDLL, str]]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building every missing
     library first."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build()
-        lib = _LIBS[name] = ctypes.CDLL(str(_target(name)[1]))
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-    return lib
+    with _BUILD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build()
+            lib = ctypes.CDLL(str(_target(name)[1]))
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
+
+
+def count_launch(fn) -> None:
+    """Add one to the wrapper ``fn``'s ``launch_count``.  The increment is
+    a read-modify-write, so a lock keeps the count exact when threads
+    launch at once."""
+    with _COUNT_LOCK:
+        fn.launch_count += 1
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

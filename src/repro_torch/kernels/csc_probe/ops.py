@@ -58,7 +58,7 @@ def csc_partition_mask(sketch, fps: torch.Tensor) -> torch.Tensor:
                      arrs["seeds"].data_ptr(), sketch.j, sketch.k, sketch.p,
                      out.data_ptr(), build.stream_of(fps))
         build.check(lib, err, "csc_probe")
-        csc_partition_mask.launch_count += 1
+        build.count_launch(csc_partition_mask)
     return out
 
 

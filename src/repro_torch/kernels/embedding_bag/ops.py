@@ -46,7 +46,7 @@ def embedding_bag_sum(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             err = fn(table.data_ptr(), idx.data_ptr(), b, bag, d,
                      out.data_ptr(), build.stream_of(table))
         build.check(lib, err, "embedding_bag")
-        embedding_bag_sum.launch_count += 1
+        build.count_launch(embedding_bag_sum)
     return out
 
 

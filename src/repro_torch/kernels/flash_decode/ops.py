@@ -125,7 +125,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  l.data_ptr(), acc.data_ptr(), out.data_ptr(),
                  build.stream_of(q))
     build.check(lib, err, "flash_decode")
-    flash_decode.launch_count += 1
+    build.count_launch(flash_decode)
     return out
 
 

@@ -50,7 +50,7 @@ def retrieval_scores(corpus: torch.Tensor, query: torch.Tensor
             err = fn(corpus.data_ptr(), query.data_ptr(), c, d, vec,
                      out.data_ptr(), build.stream_of(corpus))
         build.check(lib, err, "retrieval_score")
-        retrieval_scores.launch_count += 1
+        build.count_launch(retrieval_scores)
     return out
 
 

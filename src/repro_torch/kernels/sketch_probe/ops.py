@@ -88,7 +88,7 @@ def mphf_probe_arrs(fps: torch.Tensor, arrs: dict
             err = fn(fps.data_ptr(), q, *_mphf_args(arrs), idx.data_ptr(),
                      absent.data_ptr(), build.stream_of(fps))
         build.check(lib, err, "sketch_probe")
-        mphf_probe_arrs.launch_count += 1
+        build.count_launch(mphf_probe_arrs)
     return idx, absent
 
 
@@ -135,7 +135,7 @@ def match_planes(fps: torch.Tensor, arrs: dict, acc: torch.Tensor, *,
                      int(arrs["n_lists1"]), acc.data_ptr(), acc.shape[1],
                      build.stream_of(fps))
         build.check(lib, err, "sketch_probe (fused)")
-        match_planes.launch_count += 1
+        build.count_launch(match_planes)
     return acc
 
 

@@ -46,7 +46,7 @@ def token_fingerprints(tokens_u8: torch.Tensor, lengths: torch.Tensor
             err = fn(tokens_u8.data_ptr(), lengths.data_ptr(), n, l,
                      out.data_ptr(), build.stream_of(tokens_u8))
         build.check(lib, err, "token_hash")
-        token_fingerprints.launch_count += 1
+        build.count_launch(token_fingerprints)
     return out
 
 

@@ -446,8 +446,10 @@ class DynaWarpStore(LogStoreBase):
     :meth:`close`.  The files are the JAX package's format: either
     package opens a store the other wrote.
 
-    ``shard_axes`` and :meth:`serving` raise ``NotImplementedError`` until
-    their slices are ported.  ``extract_on_device`` may be None or True:
+    :meth:`serving` puts the wave-coalescing front end of
+    ``core/serving.py`` before the store or its snapshots.
+    ``shard_axes`` raises ``NotImplementedError`` until its slice is
+    ported.  ``extract_on_device`` may be None or True:
     extraction always runs on the store's device."""
     name = "dynawarp"
 
@@ -1025,8 +1027,34 @@ class DynaWarpStore(LogStoreBase):
             [term_query_tokens(t) for t in terms], op="and")
 
     # ---------------------------------------------------------------- serving
-    def serving(self, **kw):
-        raise NotImplementedError(f"serving(): {_NOT_PORTED}")
+    def serving(self, *, n_replicas: int = 1, **scheduler_kw):
+        """The wave-coalescing serving front end over this store
+        (:class:`~repro_torch.core.serving.StoreServer`): many client
+        threads submit term/boolean queries, the scheduler coalesces them
+        into shape-bucketed engine waves with ``max_live_waves`` admission
+        control, and answers are bit-identical to direct
+        ``query_term_batch`` calls.
+
+        A FINISHED store serves itself (all batches).  An unfinished
+        segmented store serves :meth:`snapshot` views — point-in-time
+        prefixes that a background ``server.refresh()`` cadence
+        advances while the writer keeps ingesting; every answer stays
+        consistent with some published prefix.  ``n_replicas`` engine
+        replicas (cheap: shared per-segment device caches via
+        :meth:`~repro_torch.core.query_engine.QueryEngine.clone`) let up
+        to ``max_live_waves`` waves overlap.  Close the server (context
+        manager or ``close()``) to drain its worker threads."""
+        from ..core.serving import StoreServer
+        if self._finished:
+            if self.engine is None:
+                raise ValueError("serving requires device_query=True")
+            return StoreServer(lambda: self, n_replicas=n_replicas,
+                               **scheduler_kw)
+        if self.mode != "segmented":
+            raise ValueError("serving an unfinished store requires "
+                             "mode='segmented' (snapshot readers)")
+        return StoreServer(self.snapshot, n_replicas=n_replicas,
+                           **scheduler_kw)
 
     # ------------------------------------------------------------- live reads
     def snapshot(self) -> "StoreSnapshot":

@@ -11,6 +11,8 @@ def test_quickstart_runs_on_cpu(capsys):
     assert "resumed + finished: term 'alice' matches in-RAM store: True" \
         in out
     assert "crashed mid-ingest; recovered" in out and "finished=False" in out
+    assert "served 24 queries from 8 clients in " in out
+    assert "answers match direct queries: True" in out
 
 
 def test_batched_query_runs_on_cpu(capsys):

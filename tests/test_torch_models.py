@@ -339,14 +339,13 @@ def test_default_device_without_gpu_raises(monkeypatch):
 def test_serve_runs_on_cpu_at_smoke_size(arch, want, capsys):
     assert port_serve.main(["--arch", arch, "--device", "cpu"]) == 0
     assert want in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        port_serve.main(["--arch", "dynawarp", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flags", [["--lines", "100"], ["--store", "x"],
                                    ["--flush-deadline-ms", "1.5"]])
 def test_serve_store_flags_raise_until_ported(flags):
-    """The store server's options are named as in the JAX driver, but are
-    refused, not silently ignored, with an LM or recsys arch."""
-    with pytest.raises(NotImplementedError, match=flags[0]):
+    """The store server's options (``--arch dynawarp``, named as in the JAX
+    package's serve.py) are refused, not silently ignored, with an LM or
+    recsys arch."""
+    with pytest.raises(ValueError, match=flags[0]):
         port_serve.main(["--arch", "llama3-8b", "--device", "cpu", *flags])

@@ -155,7 +155,8 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.logstore.blobfile, "
             "repro_torch.examples.quickstart, "
             "repro_torch.examples.batched_query, "
-            "repro_torch.examples.tail_ingest; "
+            "repro_torch.examples.tail_ingest, "
+            "repro_torch.core.serving, repro_torch.configs.dynawarp; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -173,12 +174,13 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 def test_unported_paths_raise(small_dataset, tmp_path):
-    """``shard_axes=`` and ``serving()`` raise "not yet ported" and a bad
+    """``shard_axes=`` raises "not yet ported", ``serving()`` of an
+    unfinished batch-mode store raises as the reference's does, and a bad
     mode raises; ``path=``, ``snapshot()`` and ``open()`` work and answer
     as the reference's."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         DynaWarpStore(device="cpu", shard_axes=("data",))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="mode='segmented'"):
         DynaWarpStore(device="cpu").serving()
     with pytest.raises(ValueError):
         DynaWarpStore(device="cpu", mode="streaming")
