@@ -38,8 +38,8 @@ Phases (any failure raises, so the exit code is not 0):
      equal the scan store's;
   4b. the durable path on phase 4's lines and queries:
      ``DynaWarpStore(mode="segmented", path=..., fsync=True)`` publishing
-     its manifest at every spill, a snapshot every 100,000 lines answering
-     a standing wave of 256 terms (32 present ids, 224 absent; its matches
+     its manifest at every spill, a snapshot every 200,000 lines answering
+     a standing wave of 256 terms (16 present ids, 240 absent; its matches
      equal to phase 4's below the snapshot's line count), the term and contains candidates equal to
      phase 4's bit for bit; ``close()`` and ``open(mmap=True)``, the first
      wave's uploads from the memmapped segments (one a segment), warm waves
@@ -68,12 +68,39 @@ Phases (any failure raises, so the exit code is not 0):
      with an answer, no ``token_hash`` and no upload (the device's busy
      share from a second, profiled run of the load); ``store.serving()``
      answers equal to the store's own (term, contains, batch); a durable
-     writer of the first 200,000 lines (4 MiB spills) whose snapshots two
+     writer of the first 100,000 lines (4 MiB spills) whose snapshots two
      reader threads serve while it ingests, every answer exact over a
      published prefix, at least one refresh that moved the view, and
      after ``finish()`` the whole prefix equal to phase 4's matches; and
      ``launch/serve.py --arch dynawarp --store`` on phase 4b's directory
      with the measured model;
+  4d. sharded retrieval on phase 4's lines and queries: a durable
+     ``DynaWarpStore(shard_axes=("data",), path=..., fsync=True)`` spilling
+     at 4 MiB into at least 16 segments (its writer merges none; a plane
+     budget of 256 MiB, so that compacted segments keep theirs), its own
+     engine a ``ShardedQueryEngine`` with one shard per card; beside it the
+     unsharded engine and 8 and 4 logical shards of the card
+     (``ShardedQueryEngine(devices=[dev] * N)``), slots by the least-loaded
+     rule; every term, contains AND and OR wave of each equal to the
+     unsharded engine's bit for bit (and that one to its host path), one
+     ``token_hash``, one fused probe a segment, one fold and one
+     extraction a wave, one upload a segment by the first engine and none
+     by the others, the same bytes to the host as the unsharded wave, a
+     sample of matches equal to the scan store's; median and p99 of 31
+     warm waves of each kind and engine, in turns, and the device's busy
+     share in one profiled term wave; a ``WaveScheduler`` over 2 clones of
+     the 4-shard engine under phase 4c's open-loop load (answers equal to
+     the direct wave, launches a device wave, no upload) and
+     ``store.serving()`` answers equal to the store's own; then, with the
+     store's engine on 4 logical shards (``default_shard_devices`` swapped,
+     as the tests force a host mesh), ``compact(fanout=F)`` with F the
+     count of the most crowded size tier, so that one tier merges once
+     (survivors keep
+     their slots and upload nothing, merged segments take the rule's slot
+     and upload once, waves equal the host path), ``close()`` and
+     ``open(shard_axes=("data",))`` (candidates equal, one upload a
+     segment) and a second ``open()`` (slots found by durable id, no
+     upload).  Its directory lives under ``build/`` and is removed;
   5. the CSC path: ``CscStore`` on the same lines, sized by the paper's
      protocol (the next power of two above the DynaWarp sketch's bits), its
      bits on the GPU; the same term and contains queries as one
@@ -136,23 +163,37 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N_LINES, N_SOURCES, SEED, BATCH_LINES = 1_000_000, 1000, 3, 512
 N_TERMS, N_NEEDLES = 4096, 1024      # term wave: half present, half absent
-# phase 4b: the snapshots' standing term wave and cadence, and the crash
-# sub-phase's prefix and spill limit (at the paper's 32 MiB the first spill
-# comes after about 330,000 lines; 4 MiB spills 3 times in 200,000)
-N_STANDING, N_STANDING_PRESENT, SNAP_EVERY = 256, 32, 100_000
+# phase 4b: the snapshots' standing term wave and cadence (cut from 32
+# present ids every 100,000 lines for the script's time: a present id's
+# post-filter reads hundreds of batches), and the crash sub-phase's prefix
+# and spill limit (at the paper's 32 MiB the first spill comes after about
+# 330,000 lines; 4 MiB spills 3 times in 200,000)
+N_STANDING, N_STANDING_PRESENT, SNAP_EVERY = 256, 16, 200_000
 CRASH_LINES, CRASH_MEMORY = 200_000, 4 << 20
 # phase 4c: the cost model's buckets (the config's) and reps; the open-loop
 # load (LOAD_CLIENTS threads, each offering LOAD_RATE q/s, above both back
 # ends' capacity) over LOAD_PRESENT + LOAD_ABSENT ids of the term wave; the
 # StoreServer's sample (few present ids: each one's post-filter reads
-# hundreds of batches); the live writer's prefix (cut from 1M lines for the
-# phase's time), spill limit, ingest chunk and its readers' terms
+# hundreds of batches); the live writer's prefix (cut from 1M lines, then
+# from 200,000, for the script's time), spill limit, ingest chunk and its
+# readers' terms
 SERVE_BUCKETS, SERVE_REPS = (8, 16, 32, 64, 128, 256), 5
 LOAD_CLIENTS, LOAD_PER_CLIENT, LOAD_RATE = 8, 400, 10_000.0
 LOAD_PRESENT, LOAD_ABSENT = 256, 256
 N_SERVE_PRESENT, N_SERVE_ABSENT, N_SERVE_NEEDLES = 4, 12, 4
-LIVE_LINES, LIVE_MEMORY, LIVE_CHUNK = 200_000, 4 << 20, 10_000
+LIVE_LINES, LIVE_MEMORY, LIVE_CHUNK = 100_000, 4 << 20, 10_000
 LIVE_PRESENT, LIVE_ABSENT = 2, 6
+# phase 4d: the sharded store's spill limit (its writer merges no
+# temporaries, so that the 1M lines stay about 20 segments) and plane budget
+# (a compacted segment of all 1M lines holds ~100 MB of planes: past the
+# default 64 MiB it would be probed on the host, outside every shard), the
+# logical
+# shard counts held beside the store's own (8: the JAX package's forced host
+# mesh; 4: the four-chip layout), the warm waves timed a kind and count, the
+# logical shards of its compaction and reopen, and its StoreServer sample
+SHARD_MEMORY, SHARD_PLANES, MIN_SHARD_SEGMENTS = 4 << 20, 256 << 20, 16
+SHARD_COUNTS, SHARD_REPS, SHARD_FORCED = (8, 4), 31, 4
+N_SHARD_PRESENT, N_SHARD_ABSENT, N_SHARD_NEEDLES = 2, 6, 2
 N_SCAN_SAMPLE = 8
 N_TOKEN_ROWS = 32_768                # a term matrix above any flush batch's
 # examples/log_search.py: the Log4Shell hunt over every store
@@ -2287,6 +2328,384 @@ def serve_path(torch, np, dev, counters, seg, durable) -> dict:
         live=live, entry_point=dict(s=entry_s, line=qline)))
 
 
+# --------------------------------------------------------------- phase 4d
+def least_loaded(prior, n_shards) -> list[int]:
+    """The slots the JAX package's placement rule gives a fleet whose slots
+    were ``prior`` (None: fresh), written out here: a slot below
+    ``n_shards`` is kept; every other segment, in order, goes to the
+    least-loaded shard, the lowest on a tie."""
+    load = [0] * n_shards
+    for p in prior:
+        if p is not None and p < n_shards:
+            load[p] += 1
+    out = []
+    for p in prior:
+        if p is None or p >= n_shards:
+            p = load.index(min(load))
+            load[p] += 1
+        out.append(p)
+    return out
+
+
+def sharded_path(torch, np, dev, counters, seg, tmp) -> dict:
+    """Phase 4's lines and queries through a sharded durable store
+    (``shard_axes=("data",)``: one shard per card) and through 4 and 8
+    logical shards of the card (``ShardedQueryEngine(devices=[dev] * N)``),
+    each wave held to the unsharded engine and its host path, with its
+    launches, uploads, host copies and times; sharded serving; then the
+    store's compaction and reopen with its engine on SHARD_FORCED logical
+    shards.  The store lives under ``tmp``."""
+    import collections
+
+    from repro_torch.configs import DYNAWARP_CONFIG as cfg
+    from repro_torch.core import distributed
+    from repro_torch.core import query_engine as qe
+    from repro_torch.core.distributed import ShardedQueryEngine
+    from repro_torch.core.query_engine import QueryEngine
+    from repro_torch.core.serving import CostModel, WaveScheduler
+    from repro_torch.core.tokenizer import term_query_tokens
+    from repro_torch.kernels.bitmap_extract.ops import bitmap_extract_ragged
+    from repro_torch.kernels.bitset_ops.ops import bitset_reduce_ragged
+    from repro_torch.kernels.sketch_probe.ops import (match_planes,
+                                                      mphf_probe_arrs)
+    from repro_torch.logstore.store import DynaWarpStore
+
+    lines, terms, needle_toks = seg["ds"].lines, seg["terms"], seg["needle_toks"]
+    kinds = {"term": ([term_query_tokens(t) for t in terms], "and"),
+             "contains_and": (needle_toks, "and"),
+             "contains_or": (needle_toks, "or")}
+    entries = (match_planes, mphf_probe_arrs, bitset_reduce_ragged,
+               bitmap_extract_ragged)
+    inner_to_host = qe._to_host
+
+    def counted(eng, kind, what):
+        """One wave: one token_hash launch, one fused probe a plane segment,
+        one ragged fold and one ragged extraction; -> (answers, bytes
+        copied to the host by the fold and the extraction)."""
+        lists, op = kinds[kind]
+        n_planes = len(eng._plane_segs)
+        copied = []
+
+        def counting(t):
+            copied.append(t.numel() * t.element_size())
+            return inner_to_host(t)
+
+        before, at = read(counters), [e.launch_count for e in entries]
+        qe._to_host = counting
+        try:
+            out = eng.query_batch(lists, op=op)
+            torch.cuda.synchronize()
+        finally:
+            qe._to_host = inner_to_host
+        n = {k: v - before[k] for k, v in read(counters).items()}
+        fused, probe, fold, extract = (e.launch_count - a
+                                       for e, a in zip(entries, at))
+        require(n["token_hash"] == 1, f"{what} {kind}: token_hash launched "
+                f"{n['token_hash']} times a wave, not once")
+        require(fused == n["sketch_probe"] == n_planes and probe == 0,
+                f"{what} {kind}: {fused} fused probes for {n_planes} "
+                f"segments ({n['sketch_probe']} sketch_probe launches)")
+        require(fold == n["bitset_reduce_batch"] == 1, f"{what} {kind}: "
+                f"{fold} ragged folds a wave, not one")
+        require(extract == n["bitmap_extract"] == 1, f"{what} {kind}: "
+                f"{extract} ragged extractions a wave, not one")
+        return out, sum(copied)
+
+    def same(got, want, what):
+        require(len(got) == len(want) and all(
+            np.array_equal(a, b) for a, b in zip(got, want)),
+            f"{what}: the answers differ")
+
+    def host_path(eng, what):
+        for kind, (lists, op) in kinds.items():
+            for toks, c in zip(lists, eng.query_batch(lists, op=op)):
+                require(np.array_equal(c, eng.host_query(toks, op=op)),
+                        f"{what}: the {kind} wave differs from the host "
+                        f"path")
+
+    def scan_sample(store, what):
+        sample = list(seg["truth"])
+        for t, r in zip(sample, store.query_term_batch(sample)):
+            require(r.matches == seg["truth"][t],
+                    f"{what}: the scan oracle differs on {t!r}")
+
+    reset(counters)
+    # ------------------------------------------------- the sharded store
+    path = os.path.join(tmp, "store")
+    t0 = time.perf_counter()
+    store = DynaWarpStore(batch_lines=BATCH_LINES, mode="segmented",
+                          memory_limit_bytes=SHARD_MEMORY, compact_fanout=1,
+                          plane_budget_bytes=SHARD_PLANES,
+                          auto_compact=False, path=path, fsync=True,
+                          shard_axes=("data",), device=dev)
+    store.ingest(lines)
+    store.finish()
+    ingest_s = time.perf_counter() - t0
+    gc.collect()
+    gc.freeze()
+    own = store.engine
+    segs = store.segments
+    require(isinstance(own, ShardedQueryEngine), "the sharded store's "
+            f"engine is a {type(own).__name__}")
+    require(own.n_shards == torch.cuda.device_count(), f"{own.n_shards} "
+            f"shards on {torch.cuda.device_count()} cards")
+    require(len(segs) >= MIN_SHARD_SEGMENTS and all(
+        s.planes is not None for s in segs), f"{len(segs)} segments "
+        f"({sum(s.planes is None for s in segs)} without planes)")
+    plain = QueryEngine(segs, n_postings=len(store.blobs), device=dev)
+
+    # -------------------------------------- waves at 1, 4 and 8 shards
+    engines = {"1": own, "unsharded": plain}
+    answers, copied = {}, {}
+    for kind in kinds:
+        answers["1", kind], copied["1", kind] = counted(own, kind,
+                                                        "1 shard")
+    require(own.upload_count == len(segs), f"{own.upload_count} uploads for "
+            f"{len(segs)} segments")
+    index_bytes = own.device_bytes()
+    for kind in kinds:
+        answers["unsharded", kind], copied["unsharded", kind] = counted(
+            plain, kind, "unsharded")
+    t0 = time.perf_counter()
+    host_path(plain, "unsharded")
+    host_s = time.perf_counter() - t0
+    # store.serving() first: its replicas are clones of the store's own
+    # engine, whose placement (one shard) they apply to the segments again
+    cm = CostModel.load(str(ROOT / "build" / "bench_costmodel.json"))
+    half = len(terms) // 2
+    present, absent = terms[:half], terms[half:]
+    one_terms = present[:N_SHARD_PRESENT] + absent[:N_SHARD_ABSENT]
+    needles = seg["needles"][:N_SHARD_NEEDLES]
+    batch_terms = present[N_SHARD_PRESENT:2 * N_SHARD_PRESENT] + absent[
+        N_SHARD_ABSENT:2 * N_SHARD_ABSENT]
+    want_one = [store.query_term(t).matches for t in one_terms]
+    want_contains = [store.query_contains(x).matches for x in needles]
+    want_batch = [r.matches for r in store.query_term_batch(batch_terms)]
+    t0 = time.perf_counter()
+    with store.serving(n_replicas=2, cost_model=cm) as server:
+        require(all(isinstance(e, ShardedQueryEngine)
+                    for e in server.scheduler._engines),
+                "store.serving() replicas are not sharded")
+        for t, want in zip(one_terms, want_one):
+            require(server.query_term(t, timeout=300).matches == want,
+                    f"sharded StoreServer.query_term({t!r}) differs")
+        for x, want in zip(needles, want_contains):
+            require(server.query_contains(x, timeout=300).matches == want,
+                    f"sharded StoreServer.query_contains({x!r}) differs")
+        require([r.matches for r in server.query_term_batch(
+            batch_terms, timeout=300)] == want_batch,
+            "sharded StoreServer.query_term_batch differs")
+    server_s = time.perf_counter() - t0
+    placement = {"1": own.slots}
+    for n_shards in SHARD_COUNTS:
+        name = str(n_shards)
+        for s in segs:                  # placed anew, over n_shards
+            s.set_shard_slot(None)
+        eng = engines[name] = ShardedQueryEngine(
+            segs, devices=[dev] * n_shards, n_postings=len(store.blobs))
+        per = [eng.slots.count(k) for k in range(n_shards)]
+        require(eng.slots == least_loaded([None] * len(segs), n_shards)
+                and max(per) - min(per) <= 1,
+                f"{n_shards} shards: slots {eng.slots}")
+        placement[name] = eng.slots
+        for kind in kinds:
+            answers[name, kind], copied[name, kind] = counted(
+                eng, kind, f"{n_shards} shards")
+        require(eng.upload_count == 0, f"the {n_shards}-shard engine "
+                f"uploaded {eng.upload_count} segments again")
+    for name in engines:
+        for kind in kinds:
+            same(answers[name, kind], answers["unsharded", kind],
+                 f"{name} shard(s), {kind} wave against the unsharded one")
+            require(copied[name, kind] == copied["unsharded", kind],
+                    f"{name} shard(s), {kind}: {copied[name, kind]} bytes "
+                    f"to the host, the unsharded wave "
+                    f"{copied['unsharded', kind]}")
+    scan_sample(store, "sharded store")
+    print(f"sharded store: {len(segs)} segments, {own.n_shards} shard(s) "
+          f"(= {torch.cuda.device_count()} card(s)), {index_bytes} bytes "
+          f"on the card, ingest+finish {ingest_s:.1f} s; segments a "
+          f"shard " + ", ".join(
+              f"{n} logical shards {[placement[str(n)].count(k) for k in range(n)]}"
+              for n in SHARD_COUNTS)
+          + " (the least-loaded rule's slots); every wave at 1, 4 and 8 "
+          f"shards equal to the "
+          f"unsharded engine's, which equals its host path "
+          f"({host_s:.1f} s), with its launches (one token_hash, "
+          f"{len(segs)} fused probes, one fold, one extraction) and its "
+          f"host bytes {dict((k, copied['unsharded', k]) for k in kinds)}; "
+          f"{len(segs)} uploads by the first engine, none by the others; "
+          f"{len(seg['truth'])} sampled terms equal the scan store's",
+          flush=True)
+
+    # timed in turns, each wave of each engine once a round
+    ms = {(name, kind): [] for name in engines for kind in kinds}
+    for _ in range(SHARD_REPS):
+        for name, eng in engines.items():
+            for kind, (lists, op) in kinds.items():
+                t = time.perf_counter()
+                eng.query_batch(lists, op=op)
+                torch.cuda.synchronize()
+                ms[name, kind].append(1e3 * (time.perf_counter() - t))
+    waves = {}
+    for name, eng in engines.items():
+        lists, op = kinds["term"]
+        wall_ms, busy_ms = device_busy(
+            torch, lambda: eng.query_batch(lists, op=op))
+        waves[name] = dict(
+            {kind: dict(zip(("p50_ms", "p99_ms"),
+                            percentiles(np, ms[name, kind])))
+             for kind in kinds},
+            term_profiled_wall_ms=wall_ms, term_device_busy_ms=busy_ms,
+            d2h_bytes={k: copied[name, k] for k in kinds})
+        print(f"sharded waves, {name} shard(s): " + ", ".join(
+            f"{k} p50 {v['p50_ms']:.3f} ms p99 {v['p99_ms']:.3f} ms"
+            for k, v in waves[name].items() if k in kinds)
+            + f" ({SHARD_REPS} warm waves each, in turns); device busy in "
+            f"a term wave {busy_text(wall_ms, busy_ms)}", flush=True)
+
+    # ------------------------------------------- serving, 4 logical shards
+    e4 = engines["4"]
+    mix = [t for pair in zip(present[:LOAD_PRESENT], absent[:LOAD_ABSENT])
+           for t in pair]
+    mix_lists = [term_query_tokens(t) for t in mix]
+    mix_truth = e4.query_batch(mix_lists)
+    replicas = [e4, e4.clone()]
+    require(replicas[1].slots == e4.slots and replicas[1].devices
+            == e4.devices, "a clone moved the shards")
+    sched = WaveScheduler(replicas, bucket_sizes=cfg.wave_bucket_sizes,
+                          flush_deadline_s=cfg.flush_deadline_s,
+                          max_live_waves=cfg.max_live_waves,
+                          max_pending=cfg.serve_max_pending, cost_model=cm)
+    try:
+        sched.query_batch(mix_lists[:cfg.wave_bucket_sizes[-1]],
+                          timeout=120)                  # warm
+        st0, before = sched.stats(), read(counters)
+        at = [e.launch_count for e in entries]
+        load, res = open_loop(np, sched.submit, mix_lists, SEED + 7)
+        st1, after = sched.stats(), read(counters)
+    finally:
+        sched.close()
+    fused, _, fold, extract = (e.launch_count - a for e, a in zip(entries, at))
+    n = {k: after[k] - before[k] for k in after}
+    for qi, t in res:
+        require(np.array_equal(t.wait(0), mix_truth[qi]),
+                "sharded serving: an answer differs from the direct wave")
+    device_waves = st1.device_waves - st0.device_waves
+    with_answer = {t.wave_id for _, t in res
+                   if t.via == "device" and t.wait(0).size}
+    require(st1.failed == 0 and device_waves > 0, f"sharded serving: "
+            f"{st1.failed} failed, {device_waves} device waves")
+    require(fused == n["sketch_probe"] == len(segs) * device_waves
+            and fold == n["bitset_reduce_batch"] == device_waves
+            and extract == n["bitmap_extract"] == len(with_answer)
+            and n["token_hash"] == 0, f"sharded serving: {fused} probes, "
+            f"{fold} folds, {extract} extractions for {device_waves} device "
+            f"waves of {len(segs)} segments ({len(with_answer)} with an "
+            f"answer)")
+    require(all(r.upload_count == 0 for r in replicas),
+            "a served wave uploaded a segment again")
+    serving = dict(load=load, device_waves=device_waves,
+                   waves=st1.waves - st0.waves,
+                   launches=dict(fused=fused, fold=fold, extract=extract),
+                   store_server_s=server_s)
+    print(f"sharded serving: a WaveScheduler over 2 clones of the 4-shard "
+          f"engine, {load['completed']} open-loop queries ({LOAD_CLIENTS} "
+          f"clients) = {load['qps']:.0f} q/s, p50 {load['p50_ms']:.2f} ms, "
+          f"p99 {load['p99_ms']:.2f} ms, every answer equal to the direct "
+          f"wave; {serving['waves']} waves ({device_waves} device: "
+          f"{fused} fused probes, {fold} folds, {extract} extractions), no "
+          f"upload; store.serving() answers equal the store's own "
+          f"({len(one_terms)} terms, {len(needles)} needles, a batch of "
+          f"{len(batch_terms)}), {server_s:.1f} s", flush=True)
+
+    # -------------------------------- compaction and reopen, 4 shards
+    # the most crowded size tier merges, once: at fanout 2 every tier
+    # merged and the merged ones again, 21 segments into one (no survivor
+    # to hold to its slot), in 37-45 s on one H100's host
+    placed = [(s, s.get_shard_slot()) for s in segs]
+    require([p for _, p in placed] == e4.slots,
+            "the slots moved after the 4-shard engine placed them")
+    tiers = collections.Counter(s.size_bytes().bit_length() for s in segs)
+    fanout = max(2, max(tiers.values()))
+    real = distributed.default_shard_devices
+    distributed.default_shard_devices = (
+        lambda shard_axes=("data",), device=None: [dev] * SHARD_FORCED)
+    try:
+        t0 = time.perf_counter()
+        merges = store.compact(fanout=fanout)
+        compact_s = time.perf_counter() - t0
+        new = store.engine
+        require(merges >= 1 and isinstance(new, ShardedQueryEngine)
+                and new.n_shards == SHARD_FORCED, f"compaction: {merges} "
+                f"merges, a {type(new).__name__} engine")
+        require(all(s.planes is not None for s in store.segments),
+                "compaction: a merged segment lost its planes")
+        prior = [next((was for old, was in placed if old is s), None)
+                 for _, s in new._plane_segs]
+        merged = sum(p is None for p in prior)
+        require(new.slots == least_loaded(prior, SHARD_FORCED),
+                f"compaction: slots {new.slots}, survivors' before "
+                f"{prior}")
+        compacted = {}
+        for kind in kinds:
+            compacted[kind], _ = counted(new, kind, "after compaction")
+        require(new.upload_count == merged, f"compaction: "
+                f"{new.upload_count} uploads for {merged} merged segments")
+        host_path(new, "after compaction")
+        scan_sample(store, "after compaction")
+        n_compacted = len(store.segments)
+        store.close()
+        t0 = time.perf_counter()
+        re = DynaWarpStore.open(path, shard_axes=("data",), device=dev)
+        open_s = time.perf_counter() - t0
+        require(isinstance(re.engine, ShardedQueryEngine)
+                and len(re.engine._plane_segs) == len(re.segments)
+                and re.engine.slots == least_loaded(
+                    [None] * len(re.segments), SHARD_FORCED),
+                f"reopen: slots {re.engine.slots} of {len(re.segments)} "
+                f"segments")
+        for kind in kinds:
+            got, _ = counted(re.engine, kind, "reopened")
+            same(got, compacted[kind], f"reopened {kind} wave against the "
+                 f"compacted store's")
+        require(re.engine.upload_count == len(re.segments),
+                f"reopen: {re.engine.upload_count} uploads for "
+                f"{len(re.segments)} segments")
+        re2 = DynaWarpStore.open(path, shard_axes=("data",), device=dev)
+        require([s.get_shard_slot() for s in re2.segments] == re.engine.slots
+                == re2.engine.slots, "a second open() did not find the "
+                "slots by durable id")
+        for kind in kinds:
+            got, _ = counted(re2.engine, kind, "second open")
+            same(got, compacted[kind], f"second open {kind} wave")
+        require(re2.engine.upload_count == 0, f"a second open() uploaded "
+                f"{re2.engine.upload_count} segments")
+        re.close()
+        re2.close()
+    finally:
+        distributed.default_shard_devices = real
+    print(f"sharded compaction ({SHARD_FORCED} logical shards): size tiers "
+          f"{dict(sorted(tiers.items()))}, fanout {fanout}: {merges} "
+          f"merges of {len(segs)} segments into {n_compacted} in "
+          f"{compact_s:.1f} s, {len(prior) - merged} surviving segment(s) "
+          f"kept their slots, {merged} merged one(s) placed by the rule and "
+          f"uploaded once; waves equal the host path, sampled matches the "
+          f"scan store's; close() and open(shard_axes=('data',)) "
+          f"{open_s:.3f} s: candidates equal bit for bit, one upload a "
+          f"segment; a second open() found the slots {re.engine.slots} by "
+          f"durable id and uploaded nothing", flush=True)
+    launches = read(counters)
+    return dict(launches=launches, summary=dict(
+        segments=len(segs), n_shards=own.n_shards, index_bytes=index_bytes,
+        ingest_s=ingest_s, host_path_s=host_s, placement=placement,
+        waves=waves, serving=serving,
+        compaction=dict(fanout=fanout, tiers=dict(tiers), merges=merges,
+                        s=compact_s, segments=n_compacted,
+                        survivors=len(prior) - merged, merged=merged),
+        reopen=dict(open_s=open_s, slots=re.engine.slots)))
+
+
 # ---------------------------------------------------------------- phase 5
 def csc_path(torch, np, dev, counters, seg) -> dict:
     """CscStore on the segmented path's lines, sized by the paper's
@@ -2642,6 +3061,16 @@ def main() -> int:
     for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract"):
         require(served["launches"][name] > 0,
                 f"the serve path never launched {name}")
+    tmp = tempfile.mkdtemp(prefix="sharded-", dir=ROOT / "build")
+    try:
+        sharded = sharded_path(torch, np, dev, counters, seg, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    paths["shard"] = sharded["launches"]
+    for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
+                 "token_hash"):
+        require(sharded["launches"][name] > 0,
+                f"the sharded path never launched {name}")
     csc = csc_path(torch, np, dev, counters, seg)
     paths["csc"] = csc["launches"]
     for name in ("token_hash", "csc_probe"):
@@ -2708,6 +3137,7 @@ def main() -> int:
                                          waves=seg_summary["waves"]),
                           durable=durable["summary"],
                           serve=served["summary"],
+                          sharded=sharded["summary"],
                           csc=csc, log_search=hunt["stores"], lm=lm,
                           recsys=rec)))
     print(json.dumps({"kernels": rows, "launch_floor_ms": floor_ms}))

@@ -27,10 +27,13 @@ it does not read this dataclass:
 Beyond-paper read-path knobs (sharded device retrieval), also
 ``DynaWarpStore`` constructor arguments:
   * ``shard_axes`` — ``None`` keeps the single-device ``QueryEngine``.
-    The JAX package's mesh-axis tuples (``('data',)``, ``('pod',
-    'data')``) route its waves through a sharded engine; the port has
-    none yet, so its store raises "not yet ported" for any other value.
-    The field stays, named as the JAX package names it.
+    Axis tuples (``('data',)``, ``('pod', 'data')``, named as the JAX
+    package's mesh axes) route waves through
+    ``core.distributed.ShardedQueryEngine``: segments assigned to one
+    shard per visible device (leading axes of size 1), each shard's
+    probes into a partial OR-ed onto the store's device before the one
+    fold and extraction.  ``ShardedQueryEngine(segments, devices=[dev]
+    * N)`` holds N logical shards on one card.
   * ``extract_on_device`` — where hit bitmaps become posting ids.
     ``None``/``True`` (default, and the only values the port takes): on
     the device through the ``bitmap_extract`` compaction — one id array

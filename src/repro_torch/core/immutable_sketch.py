@@ -34,27 +34,38 @@ SIG_SEED = 0x516E4715
 DEFAULT_SIG_BITS = 8
 DEFAULT_PLANE_BUDGET = 64 << 20  # bytes of optional device bitmap planes
 
-# Process-global device-cache registry keyed by (DURABLE segment id,
-# device) — the id is "<abs file path>@g<generation>", assigned by the
-# manifest-based store.  RAM-only sketches memoize on the object as before;
-# durable sketches share this registry so reopening a store in the same
-# process re-uploads nothing it already staged — the id, not Python object
-# identity, names the uploaded buffers.  Entries are dropped with the
-# segment files (compaction orphan GC calls drop_device_cache /
-# discard_durable_caches).
+# Process-global registries keyed by DURABLE segment id — the id is
+# "<abs file path>@g<generation>", assigned by the manifest-based store:
+# the device caches by (id, device), the sharded engine's shard slots by
+# id.  RAM-only sketches memoize on the object as before; durable sketches
+# share these registries so reopening a store in the same process
+# re-uploads nothing it already staged and keeps every segment on its
+# shard — the id, not Python object identity, names the uploaded buffers.
+# Entries are dropped with the segment files (compaction orphan GC calls
+# drop_device_cache / discard_durable_caches).
 _DURABLE_DEVICE_CACHES: dict[tuple[str, torch.device], dict] = {}
+_DURABLE_SHARD_SLOTS: dict[str, int] = {}
 
 
 def discard_durable_caches(durable_id_or_path: str) -> None:
-    """Free every registry entry of a durable segment id, on every device —
-    or, given a bare file path, of EVERY generation of that path (orphan GC
-    deletes files; a later path reuse must never see stale buffers)."""
+    """Free every registry entry of a durable segment id, on every device,
+    and its shard slot — or, given a bare file path, of EVERY generation of
+    that path (orphan GC deletes files; a later path reuse must never see
+    stale buffers)."""
     prefix = durable_id_or_path + "@"
+
+    def dead(durable_id: str) -> bool:
+        return (durable_id == durable_id_or_path
+                or durable_id.startswith(prefix))
+
     # list() copies the keys in one step: a wave on another thread may
     # stage a segment meanwhile
     for k in list(_DURABLE_DEVICE_CACHES):
-        if k[0] == durable_id_or_path or k[0].startswith(prefix):
+        if dead(k[0]):
             _DURABLE_DEVICE_CACHES.pop(k, None)
+    for k in list(_DURABLE_SHARD_SLOTS):
+        if dead(k):
+            _DURABLE_SHARD_SLOTS.pop(k, None)
 
 
 @dataclass
@@ -188,6 +199,26 @@ class ImmutableSketch:
             return (self.durable_id, device) in _DURABLE_DEVICE_CACHES
         memo = getattr(self, "_device_cache", None)
         return memo is not None and memo[0] == device
+
+    def get_shard_slot(self) -> int | None:
+        """Stable shard placement (durable-id aware): a segment keeps the
+        slot it was first given so its uploaded buffers stay on its shard's
+        device across engine rebuilds AND store reopens within one
+        process."""
+        if self.durable_id is not None:
+            return _DURABLE_SHARD_SLOTS.get(self.durable_id)
+        return getattr(self, "_shard_slot", None)
+
+    def set_shard_slot(self, slot: int | None) -> None:
+        """Place the segment on shard ``slot``; ``None`` forgets the
+        placement, so the next sharded engine places it anew."""
+        if self.durable_id is not None:
+            if slot is None:
+                _DURABLE_SHARD_SLOTS.pop(self.durable_id, None)
+            else:
+                _DURABLE_SHARD_SLOTS[self.durable_id] = int(slot)
+        else:
+            self._shard_slot = None if slot is None else int(slot)
 
     def drop_device_cache(self) -> None:
         """Free the memoized device arrays (segments merged away by

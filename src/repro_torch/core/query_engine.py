@@ -193,10 +193,13 @@ class QueryEngine:
             seg.match_bitmap_torch(flat, self._seg_arrs(seg), out=acc)
         return acc.view(qb, tb, self.words)
 
-    def _seg_arrs(self, seg):
-        if not seg.has_device_cache(self.device):
+    def _seg_arrs(self, seg, device=None):
+        """The segment's buffers on ``device`` (the engine's by default),
+        uploaded on first use and counted in ``upload_count``."""
+        device = self.device if device is None else device
+        if not seg.has_device_cache(device):
             self.upload_count += 1
-        return seg.device_cache(self.device)
+        return seg.device_cache(device)
 
     # ------------------------------------------------------ host fallback
     def _host_token_planes(self, si: int, seg, fps: np.ndarray,

@@ -448,9 +448,15 @@ class DynaWarpStore(LogStoreBase):
 
     :meth:`serving` puts the wave-coalescing front end of
     ``core/serving.py`` before the store or its snapshots.
-    ``shard_axes`` raises ``NotImplementedError`` until its slice is
-    ported.  ``extract_on_device`` may be None or True:
-    extraction always runs on the store's device."""
+    ``shard_axes`` (e.g. ``('data',)`` or ``('pod', 'data')``) swaps the
+    engine for a :class:`~repro_torch.core.distributed.ShardedQueryEngine`
+    over every visible device of the store's type, the store's device
+    first: segments are assigned to shards and each wave's probes fan out
+    over them — same kernels, bit-identical results.  Rebuilds (spill
+    publishes, compaction, ``open()``, snapshots) stay sharded, and
+    unchanged segments keep their shards and uploaded buffers.
+    ``extract_on_device`` may be None or True: extraction always runs on
+    the store's device."""
     name = "dynawarp"
 
     def __init__(self, *, batch_lines: int = 512, mode: str = "batch",
@@ -470,9 +476,6 @@ class DynaWarpStore(LogStoreBase):
         if extract_on_device not in (None, True):
             raise NotImplementedError(
                 f"extract_on_device={extract_on_device!r}: {_NOT_PORTED}")
-        if shard_axes:
-            raise NotImplementedError(f"shard_axes={shard_axes!r}: "
-                                      f"{_NOT_PORTED}")
         super().__init__(batch_lines=batch_lines,
                          ingest_cache_size=ingest_cache_size)
         # the index is filled in here, once: a compactor thread's own
@@ -488,6 +491,7 @@ class DynaWarpStore(LogStoreBase):
         self.compact_fanout = compact_fanout
         self.auto_compact = auto_compact
         self.extract_on_device = extract_on_device
+        self.shard_axes = tuple(shard_axes) if shard_axes else None
         self._compact_pending = False
         self._pending_fanout: int | None = None
         self.sketch = None
@@ -868,8 +872,9 @@ class DynaWarpStore(LogStoreBase):
         ``np.memmap``-backed (only each file's header page is read up
         front), and the query engine rebuilds over durable segment ids —
         so a store reopened in the same process re-uploads no device
-        buffers it already staged.  ``device`` is the constructor's
-        (``None`` means the GPU).
+        buffers it already staged, and a sharded one (``shard_axes``, as
+        the constructor's) finds each segment's shard slot by its durable
+        id.  ``device`` is the constructor's (``None`` means the GPU).
 
         A FINISHED manifest comes back read-only (queryable and
         compactable).  An UNFINISHED one — published by a per-spill swap
@@ -960,9 +965,15 @@ class DynaWarpStore(LogStoreBase):
 
     def _build_engine(self) -> QueryEngine:
         """The wave engine over the current segments.  Used at finish()
-        AND after every compaction: surviving segments reuse their
-        uploaded device buffers, merged segments upload once on their
-        first wave."""
+        AND after every compaction, so rebuilds keep the sharding layout:
+        surviving segments reuse their uploaded (per-shard) device
+        buffers, merged segments upload once on their first wave."""
+        if self.shard_axes is not None:
+            from ..core.distributed import ShardedQueryEngine
+            return ShardedQueryEngine(self.segments,
+                                      n_postings=len(self.blobs),
+                                      shard_axes=self.shard_axes,
+                                      device=self.device)
         return QueryEngine(self.segments, n_postings=len(self.blobs),
                            device=self.device)
 

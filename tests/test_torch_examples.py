@@ -1,6 +1,11 @@
-"""The port's copies of ``examples/quickstart.py``, ``batched_query.py`` and
-``tail_ingest.py`` run end to end on the CPU at a tiny size, and their
-checks of their own answers hold."""
+"""The port's copies of ``examples/quickstart.py``, ``batched_query.py``,
+``tail_ingest.py`` and ``distributed_query.py`` run end to end on the CPU at
+a tiny size, and their checks of their own answers hold."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 from repro_torch.examples import batched_query, quickstart, tail_ingest
 
 
@@ -29,3 +34,23 @@ def test_tail_ingest_runs_on_cpu(capsys, tmp_path):
     out = capsys.readouterr().out
     assert "standing query 'error'" in out
     assert "finished store holds 3000 lines" in out
+
+
+def test_distributed_query_runs_on_cpu_over_8_logical_shards():
+    """``python -m repro_torch.examples.distributed_query --device cpu
+    --shards 8``: the counterpart of the reference's run on a forced
+    8-device host mesh."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.distributed_query",
+         "--device", "cpu", "--shards", "8", "--n-lines", "6000"],
+        capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stdout + r.stderr
+    out = r.stdout
+    assert "over 8 shard(s) on ['cpu']" in out
+    assert "sharded candidates bit-identical to the single-device engine: " \
+        "True" in out
+    assert "surviving segments kept their shards: True, wave equal to the " \
+        "host path: True" in out

@@ -23,8 +23,7 @@ plus what only two packages can show.
     directory written by the port.
 
 Every port store runs on ``device="cpu"`` (the kernels' plain versions).
-The sharded case of ``test_store_server_matches_store_answers`` waits for
-the port's sharding.  Every blocking call has an explicit timeout.
+Every blocking call has an explicit timeout.
 """
 import json
 import threading
@@ -554,26 +553,33 @@ def test_server_survives_writer_crash_then_recovery_converges(
 
 def test_store_server_matches_store_answers(small_dataset, queries):
     """StoreServer answers == the store's own query_term/contains/batch
-    on a finished store (the single-device engine)."""
-    s = DynaWarpStore(device="cpu", **KW)
-    s.ingest(small_dataset.lines[:600])
-    s.finish()
+    on a finished store, for the single-device engine and the sharded one
+    (the reference's ``engine`` and ``sharded`` cases; the replicas of a
+    sharded store are sharded clones)."""
+    from repro_torch.core.distributed import ShardedQueryEngine
     terms, _ = queries
     terms = terms[:4] + ["info"]
-    server = s.serving(n_replicas=2, flush_deadline_s=0.005,
-                       cost_model=HOST_MODEL)
-    try:
-        for t in terms:
-            assert server.query_term(t, timeout=TIMEOUT).matches \
-                == s.query_term(t).matches, t
-        sub = terms[0][2:10]
-        assert server.query_contains(sub, timeout=TIMEOUT).matches \
-            == s.query_contains(sub).matches
-        got = server.query_term_batch(terms, timeout=TIMEOUT)
-        want = s.query_term_batch(terms)
-        assert [r.matches for r in got] == [r.matches for r in want]
-    finally:
-        server.close()
+    for shard_axes in (None, ("data",)):
+        s = DynaWarpStore(device="cpu", shard_axes=shard_axes, **KW)
+        s.ingest(small_dataset.lines[:600])
+        s.finish()
+        assert isinstance(s.engine, ShardedQueryEngine) == bool(shard_axes)
+        server = s.serving(n_replicas=2, flush_deadline_s=0.005,
+                           cost_model=HOST_MODEL)
+        try:
+            assert all(type(e) is type(s.engine)
+                       for e in server.scheduler._engines)
+            for t in terms:
+                assert server.query_term(t, timeout=TIMEOUT).matches \
+                    == s.query_term(t).matches, (shard_axes, t)
+            sub = terms[0][2:10]
+            assert server.query_contains(sub, timeout=TIMEOUT).matches \
+                == s.query_contains(sub).matches
+            got = server.query_term_batch(terms, timeout=TIMEOUT)
+            want = s.query_term_batch(terms)
+            assert [r.matches for r in got] == [r.matches for r in want]
+        finally:
+            server.close()
 
 
 def test_serving_needs_an_engine_or_a_segmented_writer(small_dataset):
@@ -679,8 +685,8 @@ def test_serve_dynawarp_opens_a_durable_store(small_dataset, tmp_path,
 # ------------------------------------------------------------- the config
 def test_dynawarp_config_matches_reference():
     """``configs.dynawarp`` carries the reference's fields and defaults;
-    its serving knobs are the scheduler's, and ``shard_axes`` stays a
-    field that the store still refuses."""
+    its serving knobs are the scheduler's, and its ``shard_axes`` values
+    build a store whose sharded engine answers as the plain one."""
     import dataclasses
     import inspect
 
@@ -705,5 +711,19 @@ def test_dynawarp_config_matches_reference():
             assert store_kw[f.name].default == f.default, f.name
     with pytest.raises(ValueError):
         get_arch("copr")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DynaWarpStore(device="cpu", shard_axes=("data",))
+    from repro_torch.core.distributed import ShardedQueryEngine
+    assert DYNAWARP_CONFIG.shard_axes is None
+    lines = [f"svc{i % 7} req-{i:05d} took {i % 13} ms" for i in range(400)]
+    stores = [DynaWarpStore(device="cpu", shard_axes=axes, **KW)
+              for axes in (None, ("data",), ("pod", "data"))]
+    for st in stores:
+        st.ingest(lines)
+        st.finish()
+    assert [type(st.engine).__name__ for st in stores] == [
+        "QueryEngine", "ShardedQueryEngine", "ShardedQueryEngine"]
+    assert isinstance(stores[2].engine, ShardedQueryEngine)
+    terms = ["req-00017", "svc3", "took", "absent-term"]
+    want = stores[0].candidates_term_batch(terms)
+    for st in stores[1:]:
+        for x, y in zip(st.candidates_term_batch(terms), want):
+            np.testing.assert_array_equal(x, y)

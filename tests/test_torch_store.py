@@ -12,6 +12,7 @@ import torch
 
 from repro.logstore.store import DynaWarpStore as RefStore
 from repro.logstore.store import ScanStore as RefScan
+from repro_torch.core.query_engine import QueryEngine
 from repro_torch.core.tokenizer import contains_query_tokens
 from repro_torch.logstore.datasets import (id_queries, present_id_queries)
 from repro_torch.logstore.store import DynaWarpStore, ScanStore
@@ -156,7 +157,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.examples.quickstart, "
             "repro_torch.examples.batched_query, "
             "repro_torch.examples.tail_ingest, "
-            "repro_torch.core.serving, repro_torch.configs.dynawarp; "
+            "repro_torch.core.serving, repro_torch.configs.dynawarp, "
+            "repro_torch.core.distributed, "
+            "repro_torch.examples.distributed_query; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -174,12 +177,24 @@ def test_default_device_without_gpu_raises(monkeypatch):
 
 
 def test_unported_paths_raise(small_dataset, tmp_path):
-    """``shard_axes=`` raises "not yet ported", ``serving()`` of an
-    unfinished batch-mode store raises as the reference's does, and a bad
-    mode raises; ``path=``, ``snapshot()`` and ``open()`` work and answer
-    as the reference's."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        DynaWarpStore(device="cpu", shard_axes=("data",))
+    """``shard_axes=`` is ported: a CPU store builds a
+    ``ShardedQueryEngine`` and answers as the plain one; ``serving()`` of
+    an unfinished batch-mode store raises as the reference's does, and a
+    bad mode raises; ``path=``, ``snapshot()`` and ``open()`` work and
+    answer as the reference's."""
+    from repro_torch.core.distributed import ShardedQueryEngine
+    sharded = DynaWarpStore(device="cpu", shard_axes=("data",), **STORE_KW)
+    plain = DynaWarpStore(device="cpu", **STORE_KW)
+    for s in (sharded, plain):
+        s.ingest(small_dataset.lines[:800])
+        s.finish()
+    assert isinstance(sharded.engine, ShardedQueryEngine)
+    assert sharded.engine.n_shards == 1 and sharded.shard_axes == ("data",)
+    assert type(plain.engine) is QueryEngine
+    shard_terms = present_id_queries(small_dataset, 11, 5) + ["info"]
+    for x, y in zip(sharded.candidates_term_batch(shard_terms),
+                    plain.candidates_term_batch(shard_terms)):
+        np.testing.assert_array_equal(x, y)
     with pytest.raises(ValueError, match="mode='segmented'"):
         DynaWarpStore(device="cpu").serving()
     with pytest.raises(ValueError):
