@@ -123,12 +123,23 @@ Phases (any failure raises, so the exit code is not 0):
      ``check_model_kernels``, and time each beside one PyTorch library call
      that computes the same function (``flash_decode`` also at the LM
      path's own call, ``embedding_bag`` also with the L2 flushed), with
-     each time's share of its bytes bound;
-  8. the LM serving path: llama3-8b at full width (32 layers, bf16, 8.03B
-     parameters from a seeded init), prefill of 8 prompts of 1024 tokens,
-     then 31 greedy decode steps through ``flash_decode``; one decode step
-     through the kernel against the same step through the plain
-     ``decode_attention`` on the card;
+     each time's share of its bytes bound; ``flash_decode`` also with a
+     sliding window and logit soft-capping (gemma2-9b's own local and
+     global calls, a window off the 64-position tile, one wider than the
+     cache, window 1, f32; q scaled past the cap), each rejecting the same
+     call with its window ignored or its cap ignored, timed at gemma2's
+     calls with a bound that counts the window's positions only (no
+     library call: SDPA has no cap);
+  8. the LM serving paths at full width (bf16, weights from a seeded
+     init), one arch at a time, each one's weights freed before the next:
+     llama3-8b (all 32 layers, 8.03B parameters), gemma2-9b (all 42
+     layers, 9.24B; prompts of 4,608 tokens past its 4,096 window, batch
+     4), olmo-1b (all 16 layers), phi3.5-moe (8 of its 32 layers) and
+     arctic-480b (2 of its 35 layers); prefill of 8 prompts of 1024 tokens
+     (gemma2: 4 of 4,608), then 31 greedy decode steps, ``flash_decode``
+     launched once a layer and step with the layer's window and cap; one
+     decode step through the kernel against the same step through the
+     plain ``decode_attention`` on the card;
   9. the recsys serving paths at full width: two-tower ``retrieval_cand``
      (64 requests, each the 1,048,576-row corpus GEMV through
      ``retrieval_score`` and a top-100) and xDeepFM ``serve_p99`` (32
@@ -207,13 +218,24 @@ L2_FLUSH_BYTES = 100_000_000         # written before a cold run: twice the L2
 REPS = 25
 # the model-serving paths (phases 8 and 9)
 LM_BATCH, LM_PROMPT, LM_DECODE = 8, 1024, 32
+# phase 8's LM runs, one at a time: (arch, layers kept or None for all,
+# batch, prompt).  gemma2-9b's prompt passes its 4,096-position window, so
+# that every local layer's window cuts the cache in prefill and in every
+# decode step; phi3.5-moe keeps 8 of its 32 layers (all 32 are 84 GB) and
+# arctic-480b 2 of its 35 (one layer's 128 experts are 26.8 GB)
+LM_RUNS = (("llama3-8b", None, LM_BATCH, LM_PROMPT),
+           ("gemma2-9b", None, 4, 4608),
+           ("olmo-1b", None, LM_BATCH, LM_PROMPT),
+           ("phi3.5-moe-42b-a6.6b", 8, LM_BATCH, LM_PROMPT),
+           ("arctic-480b", 2, LM_BATCH, LM_PROMPT))
 N_RETRIEVAL, TOP_K, N_SCORE = 64, 100, 32
 # decode logits, kernel path against plain, as a share of the logits' std:
 # 16 bf16 steps at unit scale, for a difference born in attention's bf16
-# rounding and carried through 32 bf16 layers.  On random weights attention
-# is a small share of the residual: the kernel's last split dropped moves
-# the logits past it and is required to, its newest position dropped does
-# not (phase 7 holds the kernel at the path's own shape for that)
+# rounding and carried through up to 42 bf16 layers.  On random weights
+# attention is a small share of the residual: the kernel's last split
+# dropped moves the logits past it and is required to, its newest position
+# dropped does not always (phase 7 holds the kernel at the path's own
+# shapes for that)
 LOGIT_TOL = 2 ** -3
 # phase 7 shapes, the main one first: (C, D) two-tower corpus, C off any
 # block, C = 1, a D that takes the scalar loads; then the kernel's edges: D
@@ -236,15 +258,34 @@ EBAG_EDGES = tuple((100_000, d, 77, bag, 1) for d in (1, 17, 33)
                                                   (100_000, 64, 1, 70, 1))
 # (B, S, Hq, Hkv, D, cache_len, dtype): llama3-8b at 8 of the decode_32k
 # cell's 128 rows, with a full and a partial cache; the LM path's own call
-# (phase 8's last step); a ragged S, cache_len 1, n_rep 1, f32
+# (phase 8's last step, also phi3.5-moe's); a ragged S, cache_len 1, n_rep
+# 1, f32; then phase 8's last step of olmo-1b (16/16 heads) and of
+# arctic-480b (56/8 heads, n_rep 7)
 DECODE_SHAPES = ((8, 32768, 32, 8, 128, 32768, "bfloat16"),
                  (8, 32768, 32, 8, 128, 30_001, "bfloat16"),
                  (8, 1056, 32, 8, 128, 1055, "bfloat16"),
                  (4, 1037, 32, 8, 128, 1037, "bfloat16"),
                  (4, 1037, 32, 8, 128, 1, "bfloat16"),
                  (4, 2048, 8, 8, 128, 2000, "bfloat16"),
-                 (4, 4096, 32, 8, 128, 4096, "float32"))
+                 (4, 4096, 32, 8, 128, 4096, "float32"),
+                 (8, 1056, 16, 16, 128, 1055, "bfloat16"),
+                 (8, 1056, 56, 8, 128, 1055, "bfloat16"))
 LM_CALL = 2          # DECODE_SHAPES' LM path call, timed beside the main one
+# every LM path call in DECODE_SHAPES, each timed beside the main one
+LM_CALLS = (LM_CALL, 7, 8)
+# (B, S, Hq, Hkv, D, cache_len, window, softcap, dtype), q scaled by 0.8
+# softcap so that |score| reaches 2-4x the cap: gemma2-9b's own decode call
+# (phase 8's last step) on a local layer (window 4096, cap 50) and on a
+# global one (cap only); a window that starts off the 64-position tile; a
+# window wider than cache_len; window 1; f32.  Each is timed beside the
+# main shape, with a bound that counts the window's positions only
+WINDOW_DECODE_SHAPES = (
+    (4, 4640, 16, 8, 256, 4639, 4096, 50.0, "bfloat16"),
+    (4, 4640, 16, 8, 256, 4639, None, 50.0, "bfloat16"),
+    (8, 2048, 32, 8, 128, 2000, 1001, 50.0, "bfloat16"),
+    (4, 1037, 32, 8, 128, 1037, 4096, 30.0, "bfloat16"),
+    (4, 1037, 32, 8, 128, 1000, 1, 50.0, "bfloat16"),
+    (4, 4096, 32, 8, 128, 4000, 1500, 50.0, "float32"))
 CSC_WAVE = 1 << 17   # phase 5 edges: past the largest lane-group call
 
 
@@ -363,11 +404,13 @@ def device_busy(torch, fn, trace=None) -> tuple[float, float | None]:
     """(wall ms, device busy ms) of one ``fn()`` call under torch.profiler:
     busy is the sum of the kernels' and copies' device time (None when the
     profiler saw no device activity).  A ``trace`` list receives the names
-    of the device's kernels and copies in the order they ran."""
+    of the device's kernels and copies in the order they ran.  The
+    profiler records device activity only: nothing reads the host's ops,
+    and recording them makes a call of many thousand launches (a long
+    prefill) take longer than the call."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -820,10 +863,12 @@ def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
     and ``library`` timed at ``cases[main]``, with the bytes bound of that
     case (with a ``flush``, kernel and ``library`` cold too), and kernel
     and ``library`` at each case of ``also``.  Each
-    returns one tensor.  The reading of an output is its largest |err| /
-    (atol + rtol |want|): at most 1 for the kernel, and above 1 for every
-    planted fault that ``faults(*case)`` yields as (label, output) pairs,
-    so that the tolerance is shown to separate."""
+    returns one tensor, and ``library`` None where no single PyTorch call
+    computes the case's function (its time is then None).  The reading of
+    an output is its largest |err| / (atol + rtol |want|): at most 1 for
+    the kernel, and above 1 for every planted fault that ``faults(*case)``
+    yields as (label, output) pairs, so that the tolerance is shown to
+    separate.  The cases of ``also`` are returned as ``at_shapes``."""
     err, worst, caught, shapes, readings = 0.0, 0.0, float("inf"), [], []
     for case in cases:
         got, want = kernel(*case), plain(*case)
@@ -873,17 +918,24 @@ def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
           f"{library_ms:.4f} ms, bound {bound:.4f} ms (bytes), kernel at "
           f"{100 * bound / ms:.1f}% of the bound, library at "
           f"{100 * bound / library_ms:.1f}%", flush=True)
+    at_shapes = []
     for i in also:
         c = cases[i]
         k_ms = device_ms(torch, lambda: kernel(*c))
-        lib_ms = device_ms(torch, lambda: library(*c))
+        lib_ms = (None if library(*c) is None
+                  else device_ms(torch, lambda: library(*c)))
         b_ms = bytes_of(*c) / HBM_BYTES_PER_S * 1e3
+        lib_text = ("n/a" if lib_ms is None else
+                    f"{lib_ms:.4f} ms ({100 * b_ms / lib_ms:.1f}% of the "
+                    f"bound)")
         print(f"kernel {name} at {c[-1]}: kernel {k_ms:.4f} ms, library "
-              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms (bytes), kernel at "
-              f"{100 * b_ms / k_ms:.1f}% of the bound, library at "
-              f"{100 * b_ms / lib_ms:.1f}%", flush=True)
+              f"{lib_text}, bound {b_ms:.4f} ms (bytes), kernel at "
+              f"{100 * b_ms / k_ms:.1f}% of the bound", flush=True)
+        at_shapes.append(dict(shape=c[-1], ms=k_ms, library_ms=lib_ms,
+                              bound_ms=b_ms))
+    extra = dict(at_shapes=at_shapes) if at_shapes else {}
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                library_ms=library_ms, shape=case[-1], **cold)
+                library_ms=library_ms, shape=case[-1], **cold, **extra)
 
 
 def check_model_kernels(torch, dev) -> dict:
@@ -893,19 +945,24 @@ def check_model_kernels(torch, dev) -> dict:
     attention at rtol 2^-7 (one bf16 step of the output) plus atol 2^-8 *
     max|want| (the plain version rounds its probabilities to bf16, the
     kernel keeps them in f32; scaled by the output, which at 32k positions
-    is ~1/100 of v).  Every attention case must also reject two planted
-    faults, made by calling the kernel on a shorter cache: its last split
-    dropped, and its newest position dropped.  Library yardsticks, timed
-    only: ``torch.mv``,
+    is ~1/100 of v).  Every attention case without a window or cap must
+    also reject two planted faults, made by calling the kernel on a
+    shorter cache: its last split dropped, and its newest position
+    dropped; every case with a window narrower than the cache must reject
+    the same call with the window ignored, and every case with a cap the
+    same call with the cap ignored (q is scaled past the cap).  Library
+    yardsticks, timed only: ``torch.mv``,
     ``F.embedding_bag(mode="sum")`` and ``F.scaled_dot_product_attention``
-    with GQA on head-major caches."""
+    with GQA on head-major caches (none for a soft-capped case: SDPA has
+    no cap)."""
     import torch.nn.functional as F
     from repro_torch.device import generator
     from repro_torch.kernels.embedding_bag.ops import embedding_bag_sum
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     from repro_torch.kernels.flash_decode.ops import (blocks_per_sm,
                                                       flash_decode,
-                                                      split_plan)
+                                                      split_plan,
+                                                      window_start)
     from repro_torch.kernels.flash_decode.ref import flash_decode_ref
     from repro_torch.kernels.retrieval_score.ops import retrieval_scores
     from repro_torch.kernels.retrieval_score.ref import retrieval_score_ref
@@ -963,29 +1020,45 @@ def check_model_kernels(torch, dev) -> dict:
         lambda t, i, _, want: (2e-5, 2e-5), 0, flush=l2_flush(torch, dev))
     del cases
 
-    def attn(b, s, hq, hkv, d, clen, dtype):
+    def attn(b, s, hq, hkv, d, clen, window, cap, dtype):
         dt = getattr(torch, dtype)
-        return (randn(b, hq, d, dtype=dt), randn(b, s, hkv, d, dtype=dt),
-                randn(b, s, hkv, d, dtype=dt), clen,
-                f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} len={clen} {dtype}")
+        q = randn(b, hq, d) * (0.8 * cap if cap else 1.0)
+        label = (f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} len={clen}"
+                 + (f" window={window}" if window else "")
+                 + (f" softcap={cap:g}" if cap else "") + f" {dtype}")
+        return (q.to(dt), randn(b, s, hkv, d, dtype=dt),
+                randn(b, s, hkv, d, dtype=dt), clen, window, cap, label)
 
-    cases = [attn(*shape) for shape in DECODE_SHAPES]
+    cases = ([attn(*shape[:6], None, None, shape[6])
+              for shape in DECODE_SHAPES]
+             + [attn(*shape) for shape in WINDOW_DECODE_SHAPES])
     head_major = {}
 
-    def sdpa(q, k, v, clen, label):
+    def sdpa(q, k, v, clen, window, cap, label):
+        if cap is not None:
+            return None                # SDPA has no soft-cap
         if label not in head_major:    # laid out once, outside the timing
-            head_major[label] = tuple(x[:, :clen].transpose(1, 2).contiguous()
-                                      for x in (k, v))
+            lo = window_start(clen, window)
+            head_major[label] = tuple(
+                x[:, lo:clen].transpose(1, 2).contiguous() for x in (k, v))
         kh, vh = head_major[label]
         return F.scaled_dot_product_attention(q[:, :, None], kh, vh,
                                               enable_gqa=True)[:, :, 0]
 
-    def tol(q, k, v, clen, _, want):
+    def tol(q, k, v, clen, window, cap, _, want):
         if q.dtype == torch.float32:
             return 2e-5, 2e-5
         return 2 ** -7, 2 ** -8 * float(want.float().abs().max())
 
-    def faults(q, k, v, clen, _):
+    def faults(q, k, v, clen, window, cap, _):
+        if window is not None and window < clen:
+            yield "window ignored", flash_decode(q, k, v, clen, softcap=cap)
+        if cap is not None and clen - window_start(clen, window) > 1:
+            # (over one position the softmax is 1 whatever the cap)
+            yield "softcap ignored", flash_decode(q, k, v, clen,
+                                                  window=window)
+        if window is not None or cap is not None:
+            return
         chunk, n_splits = split_plan(
             q.shape[0], k.shape[2], clen, sms,
             blocks_per_sm(q.shape[1] // k.shape[2], q.shape[2], q.dtype, dev))
@@ -995,14 +1068,22 @@ def check_model_kernels(torch, dev) -> dict:
         if clen > 1:
             yield "newest position dropped", flash_decode(q, k, v, clen - 1)
 
+    def window_bytes(q, k, v, clen, window, cap, _):
+        """q read and the output written once, and K and V of the
+        positions the window keeps read once."""
+        kept = clen - window_start(clen, window)
+        return 2 * q.nbytes + 2 * q.shape[0] * kept * k.shape[2] \
+            * k.shape[3] * k.element_size()
+
+    gemma_local = len(DECODE_SHAPES)
     results["flash_decode"] = hold_close(
         torch, "flash_decode", cases,
-        lambda q, k, v, n, _: flash_decode(q, k, v, n),
-        lambda q, k, v, n, _: flash_decode_ref(q, k, v, n),
-        sdpa,
-        lambda q, k, v, n, _: 2 * q.nbytes + 2 * q.shape[0] * n * k.shape[2]
-        * k.shape[3] * k.element_size(),
-        tol, 0, faults, also=(LM_CALL,))
+        lambda q, k, v, n, w, c, _: flash_decode(q, k, v, n, window=w,
+                                                 softcap=c),
+        lambda q, k, v, n, w, c, _: flash_decode_ref(q, k, v, n, window=w,
+                                                     softcap=c),
+        sdpa, window_bytes, tol, 0, faults,
+        also=LM_CALLS + (gemma_local, gemma_local + 1, gemma_local + 2))
     del cases, head_major
     torch.cuda.empty_cache()
     return results
@@ -1018,30 +1099,46 @@ def percentiles(np, ms) -> tuple[float, float]:
 
 
 # ---------------------------------------------------------------- phase 8
-def lm_path(torch, np, dev, counters, cfg=None) -> dict:
-    """llama3-8b serving at full width: prefill, greedy decode, and one
-    decode step through ``flash_decode`` against the same step through the
-    plain ``decode_attention``, with the readings of two planted faults of
-    the kernel beside it."""
+def lm_path(torch, np, dev, counters, arch="llama3-8b", layers=None,
+            batch=LM_BATCH, prompt=LM_PROMPT, cfg=None) -> dict:
+    """An LM arch's serving at full width (``layers`` of its layers kept,
+    or all): prefill, greedy decode, and one decode step through
+    ``flash_decode`` (with each layer's window and soft-cap) against the
+    same step through the plain ``decode_attention``, with the readings
+    of two planted faults of the kernel beside it (the dropped split's
+    required to move the logits past the tolerance).  ``cfg`` replaces
+    the arch's config (a smoke config when rehearsing on the CPU)."""
+    from dataclasses import replace
+
     from repro_torch.configs import get_arch
     from repro_torch.device import generator
-    from repro_torch.kernels.flash_decode.ops import blocks_per_sm, split_plan
-    from repro_torch.models import attention
+    from repro_torch.kernels.flash_decode.ops import (blocks_per_sm,
+                                                      split_plan,
+                                                      window_start)
+    from repro_torch.models import attention, moe
     from repro_torch.models.attention import decode_attention
     from repro_torch.models.transformer import (decode_step, init_cache,
-                                                init_params, prefill)
+                                                init_params, layer_window,
+                                                prefill)
 
-    cfg = cfg or get_arch("llama3-8b").config
+    t_path = time.perf_counter()
+    cfg = cfg or get_arch(arch).config
+    full_layers = cfg.n_layers
+    if layers is not None:
+        cfg = replace(cfg, n_layers=layers)
+    depth = f"{cfg.n_layers} of {full_layers} layers"
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = init_params(cfg, generator(SEED, dev))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     init_s = time.perf_counter() - t0
-    b, s = LM_BATCH, LM_PROMPT
+    b, s = batch, prompt
     prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
         1, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
 
     reset(counters)
+    t_serve = time.perf_counter()
     with torch.inference_mode():
         t0 = time.perf_counter()
         cache_pref, logits = prefill(cfg, params, prompts)
@@ -1060,6 +1157,7 @@ def lm_path(torch, np, dev, counters, cfg=None) -> dict:
             step_ms.append((time.perf_counter() - t0) * 1e3)
             tokens.append(tok)
     launches = read(counters)
+    t_checks = time.perf_counter()
     require(launches["flash_decode"] == cfg.n_layers * (LM_DECODE - 1),
             f"flash_decode launched {launches['flash_decode']} times, not "
             f"once per layer and step")
@@ -1071,33 +1169,79 @@ def lm_path(torch, np, dev, counters, cfg=None) -> dict:
     # through the kernel, through the plain version on the card, and through
     # two planted faults of the kernel, each read against the plain logits.
     # The attention module's name is swapped, and the launch count must
-    # show that each step took the attention it was given.
+    # show that each step took the attention it was given.  An MoE layer's
+    # top-k is discrete: attention outputs one bf16 step apart can flip a
+    # token's experts, which moves its logits by their whole scale.  So the
+    # plain step and the planted faults replay the kernel step's routing
+    # (their own gates at the kernel step's experts), as the kernel itself
+    # is read, and a second plain step routes on its own, to count the
+    # flips.
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     last = s + LM_DECODE - 2
     kernel_fn = attention.flash_decode
+    per_sm = blocks_per_sm(cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+                           cfg.compute_dtype, dev,
+                           cfg.attn_softcap is not None)
+
+    def plan(n, window):
+        lo = window_start(n, window)
+        return (lo, *split_plan(b, cfg.n_kv_heads, n - lo, sms, per_sm))
+
+    def drop_last_split(q, k, v, n, window=None, softcap=None):
+        # the window's positions past its first n_splits - 1 splits
+        lo, chunk, n_splits = plan(n, window)
+        return kernel_fn(q, k, v, lo + (n_splits - 1) * chunk,
+                         window=(n_splits - 1) * chunk, softcap=softcap)
+
+    def drop_newest(q, k, v, n, window=None, softcap=None):
+        return kernel_fn(q, k, v, n - 1, softcap=softcap,
+                         window=None if window is None else window - 1)
 
     steps = {"kernel": (kernel_fn, cfg.n_layers),
-             "plain": (lambda q, k, v, n: decode_attention(
-                 q[:, None], k, v, n)[:, 0], 0),
-             "newest position dropped": (
-                 lambda q, k, v, n: kernel_fn(q, k, v, n - 1), cfg.n_layers)}
-    chunk, n_splits = split_plan(
-        b, cfg.n_kv_heads, last + 1, sms,
-        blocks_per_sm(cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
-                      cfg.compute_dtype, dev))
-    if n_splits > 1:
-        steps["last split dropped"] = (lambda q, k, v, n: kernel_fn(
-            q, k, v, (n_splits - 1) * chunk), cfg.n_layers)
+             "plain": (lambda q, k, v, n, window=None, softcap=None:
+                       decode_attention(q[:, None], k, v, n, window=window,
+                                        attn_softcap=softcap)[:, 0], 0),
+             "newest position dropped": (drop_newest, cfg.n_layers)}
+    windows = [layer_window(cfg, i) for i in range(cfg.n_layers)]
+    if min(plan(last + 1, w)[2] for w in windows) > 1:
+        steps["last split dropped"] = (drop_last_split, cfg.n_layers)
+    real_top_k = moe.top_k_lower_first
+    routes = {"kernel": [], "plain, own routing": []}
+
+    def recording(into):
+        def top_k(probs, k):
+            vals, idx = real_top_k(probs, k)
+            into.append(idx)
+            return vals, idx
+        return top_k
+
+    def replaying(from_routes):
+        it = iter(from_routes)
+
+        def top_k(probs, k):
+            idx = next(it)
+            return probs.gather(-1, idx), idx
+        return top_k
+
+    route = {}
+    if cfg.is_moe:
+        route = {label: replaying(routes["kernel"]) for label in steps}
+        steps["plain, own routing"] = (steps["plain"][0], 0)
+        route.update({"kernel": recording(routes["kernel"]),
+                      "plain, own routing": recording(
+                          routes["plain, own routing"])})
     toks, logits = {}, {}
     with torch.inference_mode():
         for label, (fn, want) in steps.items():
             before = read(counters)["flash_decode"]
             attention.flash_decode = fn
+            moe.top_k_lower_first = route.get(label, real_top_k)
             try:
                 _, toks[label], logits[label] = decode_step(
                     cfg, params, cache, tokens[-2], last)
             finally:
                 attention.flash_decode = kernel_fn
+                moe.top_k_lower_first = real_top_k
             moved = read(counters)["flash_decode"] - before
             require(moved == want, f"the {label} decode step launched "
                     f"flash_decode {moved} times, not {want}")
@@ -1112,7 +1256,14 @@ def lm_path(torch, np, dev, counters, cfg=None) -> dict:
             f"decode logits through flash_decode differ from the plain "
             f"version by {diff} (logit std {scale})")
     fault_diff = {label: float((logits[label] - logits_p).abs().max()) / scale
-                  for label in steps if label not in ("kernel", "plain")}
+                  for label in steps
+                  if label not in ("kernel", "plain", "plain, own routing")}
+    # (layer, token) routings whose experts differ between the kernel step
+    # and the plain step left to route on its own, and that step's logits
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(*routes.values()))
+    own_routing = (float((logits["plain, own routing"] - logits_k).abs().max())
+                   / scale if cfg.is_moe else None)
     require(fault_diff.get("last split dropped", 1.0) > LOGIT_TOL,
             f"the decode-logit tolerance passes a kernel with its last split "
             f"dropped ({fault_diff})")
@@ -1123,14 +1274,22 @@ def lm_path(torch, np, dev, counters, cfg=None) -> dict:
             "greedy tokens differ where the plain version's margin exceeds "
             "the logit difference")
     del logits
+    stage_s = dict(serve=t_checks - t_serve,
+                   checks=time.perf_counter() - t_checks)
     # device busy share of one decode step and of one prefill
     with torch.inference_mode():
+        t0 = time.perf_counter()
         step_busy = device_busy(torch, lambda: decode_step(
             cfg, params, cache, tokens[-2], last))
-        prefill_busy = device_busy(torch, lambda: prefill(cfg, params,
-                                                          prompts))
+        stage_s["profile_step"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prefill_busy = device_busy(torch, lambda: prefill(
+            cfg, params, prompts))
+        stage_s["profile_prefill"] = time.perf_counter() - t0
     p50, p99 = percentiles(np, step_ms)
-    out = dict(params=n_params, init_s=init_s, batch=b, prompt=s,
+    out = dict(arch=arch, depth=depth, params=n_params, init_s=init_s,
+               batch=b, prompt=s, routing_flips=flips,
+               own_routing_diff_per_std=own_routing,
                decode_steps=LM_DECODE - 1, prefill_s=prefill_s,
                prefill_tok_s=b * s / prefill_s, step_ms_p50=p50,
                step_ms_p99=p99, tok_s_p50=b / p50 * 1e3,
@@ -1141,18 +1300,31 @@ def lm_path(torch, np, dev, counters, cfg=None) -> dict:
                prefill_profiled_ms=prefill_busy[0],
                prefill_busy_ms=prefill_busy[1],
                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
-    print(f"lm {cfg.name}: {n_params / 1e9:.3f}B params (init {init_s:.1f} s)"
+    print(f"lm {cfg.name} ({depth}): {n_params / 1e9:.3f}B params (init "
+          f"{init_s:.1f} s)"
           f"; prefill {b} x {s} in {prefill_s:.3f} s; decode step p50 "
           f"{p50:.2f} ms p99 {p99:.2f} ms = {out['tok_s_p50']:.0f} / "
           f"{out['tok_s_p99']:.0f} tok/s; kernel vs plain step: max |dlogit| "
           f"{diff:.4g} (std {scale:.4g}, limit {LOGIT_TOL} std), "
-          f"{int(differ.sum())} of {b} greedy tokens differ; planted faults "
+          f"{int(differ.sum())} of {b} greedy tokens differ"
+          + (f" (MoE: the plain step and the planted faults replay the "
+             f"kernel step's routing; "
+             f"routing on its own, {flips} of "
+             f"{cfg.n_layers * b} (layer, token) routings differ and its "
+             f"logits move by {own_routing:.4g} std)" if cfg.is_moe else "")
+          + f"; planted faults "
           f"move the logits by {fault_diff} std; launches {launches}; peak "
           f"{out['peak_gb']:.1f} GB; device busy: decode step "
           f"{busy_text(*step_busy)}, prefill {busy_text(*prefill_busy)}",
           flush=True)
     del params, cache
     free(torch)
+    out["wall_s"] = time.perf_counter() - t_path
+    out["stage_s"] = stage_s
+    print(f"lm {cfg.name}: {out['wall_s']:.1f} s in all (init "
+          f"{init_s:.1f} s; " + ", ".join(f"{k} {v:.1f} s"
+                                          for k, v in stage_s.items())
+          + ")", flush=True)
     return out
 
 
@@ -3005,11 +3177,23 @@ def main() -> int:
     floor_ms = launch_floor_ms(torch)
     print(f"launch floor: {floor_ms:.4f} ms (one empty launch)", flush=True)
 
+    marks = [time.perf_counter()]
+
+    def timed(name):
+        """Print the wall time since the last phase ended."""
+        now = time.perf_counter()
+        print(f"time: {name} {now - marks[-1]:.1f} s (script "
+              f"{now - t_start:.1f} s)", flush=True)
+        marks.append(now)
+
     kernels = check_kernels(torch, np, dev)
+    timed("phase 3")
     kernels.update(check_model_kernels(torch, dev))
+    timed("phase 7")
     counters = launch_counters()
     paths = {}
     seg = main_path(torch, np, dev, counters)
+    timed("phase 4")
     seg_summary = dict(ingest_s=seg["ingest_s"], waves=seg["waves"])
     launch = seg["token_launch"]
     mat, lens = launch.pop("case")
@@ -3038,6 +3222,7 @@ def main() -> int:
                                     f"total={case[2]}")],
                            f"{name} wave", flush)
         for name, case in seg.pop("wave_extracts").items()}
+    timed("phase 3 at the path's shapes")
     paths["segmented"] = seg["launches"]
     for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
                  "token_hash"):
@@ -3054,7 +3239,9 @@ def main() -> int:
                     f"the durable path never launched {name}")
         kernels["sketch_probe"]["at_reopen"] = hold_fused(
             torch, np, [durable["fused_case"]], flush)
+        timed("phase 4b")
         served = serve_path(torch, np, dev, counters, seg, durable)
+        timed("phase 4c")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths["serve"] = served["launches"]
@@ -3064,6 +3251,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="sharded-", dir=ROOT / "build")
     try:
         sharded = sharded_path(torch, np, dev, counters, seg, tmp)
+        timed("phase 4d")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     paths["shard"] = sharded["launches"]
@@ -3078,7 +3266,9 @@ def main() -> int:
                 f"the csc path never launched {name}")
     kernels["csc_probe"] = check_csc(torch, np, dev, csc.pop("sketch"),
                                      csc.pop("fps"), csc.pop("one_fps"))
+    timed("phase 5")
     hunt = log_search_path(torch, np, dev, counters)
+    timed("phase 6")
     paths["log_search"] = hunt["launches"]
     for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract",
                  "token_hash", "csc_probe"):
@@ -3086,14 +3276,19 @@ def main() -> int:
                 f"the log_search path never launched {name}")
     del seg
     free(torch)
-    lm = lm_path(torch, np, dev, counters)
-    paths["lm"] = lm.pop("launches")
+    lm = {}
+    for arch, layers, batch, prompt in LM_RUNS:
+        lm[arch] = lm_path(torch, np, dev, counters, arch, layers, batch,
+                           prompt)
+        paths[f"lm {arch}"] = lm[arch].pop("launches")
+    timed("phase 8")
     rec = recsys_path(torch, np, dev, counters)
+    timed("phase 9")
     paths["two_tower"] = rec["two_tower"].pop("launches")
     paths["xdeepfm"] = rec["xdeepfm"].pop("launches")
-    for path, name in (("lm", "flash_decode"),
-                       ("two_tower", "retrieval_score"),
-                       ("xdeepfm", "embedding_bag")):
+    for path, name in ([(f"lm {arch}", "flash_decode") for arch in lm]
+                       + [("two_tower", "retrieval_score"),
+                          ("xdeepfm", "embedding_bag")]):
         require(paths[path][name] > 0, f"the {path} path never launched {name}")
 
     src = "src/repro_torch/kernels/csrc/"
@@ -3126,6 +3321,7 @@ def main() -> int:
                  bound_by="bytes", library_ms=k.get("library_ms"),
                  shape=k["shape"],
                  **{key: k[key] for key in ("cold_ms", "library_cold_ms",
+                                            "at_shapes",
                                             "at_launch", "at_waves",
                                             "at_reopen",
                                             "probe_entry", "batch_entry",

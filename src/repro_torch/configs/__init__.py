@@ -3,17 +3,19 @@
 Only the ported architectures are registered; the JAX package's other ids
 raise "not yet ported".  The paper's own config (dynawarp/copr) is
 ``DYNAWARP_CONFIG``, not an arch."""
-from . import llama3_8b, two_tower, xdeepfm
+from . import (arctic_480b, gemma2_9b, llama3_8b, olmo_1b, phi35_moe,
+               two_tower, xdeepfm)
 from .base import ArchSpec, ShapeSpec
 from .dynawarp import CONFIG as DYNAWARP_CONFIG
 from .dynawarp import SMOKE as DYNAWARP_SMOKE
 from .dynawarp import DynaWarpConfig
 
 ARCHS: dict[str, ArchSpec] = {
-    spec.id: spec for spec in (llama3_8b.SPEC, two_tower.SPEC, xdeepfm.SPEC)}
+    spec.id: spec for spec in (
+        gemma2_9b.SPEC, olmo_1b.SPEC, llama3_8b.SPEC, phi35_moe.SPEC,
+        arctic_480b.SPEC, xdeepfm.SPEC, two_tower.SPEC)}
 
-NOT_YET_PORTED = ("gemma2-9b", "olmo-1b", "phi3.5-moe-42b-a6.6b",
-                  "arctic-480b", "meshgraphnet", "sasrec", "mind")
+NOT_YET_PORTED = ("meshgraphnet", "sasrec", "mind")
 
 
 def get_arch(arch_id: str) -> ArchSpec:

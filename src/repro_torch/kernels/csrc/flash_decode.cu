@@ -1,9 +1,11 @@
 // flash_decode: one-token GQA attention against a KV cache.
 //   q (B, Hq, D), k/v caches (B, S, Hkv, D), cache_len -> (B, Hq, D) in q's
 //   type; query head h reads kv head h / n_rep (n_rep = Hq / Hkv), scores
-//   are the f32 dot times D^-0.5, positions >= cache_len take no part, and
-//   the output is acc / max(l, 1e-30) of the online softmax (m, l, acc),
-//   all in f32.  Instantiated for bf16 (the llama3-8b path) and f32.
+//   are the f32 dot times D^-0.5, soft-capped to cap * tanh(score / cap)
+//   where a cap is given, only positions [lo, cache_len) take part (lo > 0
+//   for a sliding window: lo = cache_len - window), and the output is
+//   acc / max(l, 1e-30) of the online softmax (m, l, acc), all in f32.
+//   Instantiated for bf16 (the LM paths) and f32.
 //
 // Replaces src/repro/kernels/flash_decode/kernel.py:68 flash_decode_pallas
 // (_flash_decode_kernel).  The TPU kernel ran a (B, S / block_s) grid in
@@ -15,13 +17,21 @@
 // acc) for its n_rep query rows; a second, small kernel merges the splits
 // (launched as a programmatic dependent launch, so that its launch
 // overlaps the first kernel's run).
-// Only positions < cache_len are read, so a ragged S needs no padding.
+// Only positions in [lo, cache_len) are read, so a ragged S needs no
+// padding and a window is a shorter range, not a mask over the cache: the
+// splits cut the cache_len - lo positions of the window and start at lo.
+// (The TPU kernel had neither a window nor a cap; the JAX package decoded
+// such layers with its plain jnp decode_attention, of which this kernel
+// is the port's only form on the card.)  The soft-cap, where given, is a
+// template flag of the bf16 kernel and a block-uniform branch of the f32
+// one, so that the path without it runs the code it ran before.
 //
 // What bounds it on an H100: bytes.  Each cached K and V element is read
 // once for n_rep query rows (2 * n_rep flops per element, about 4 flops per
 // byte for llama3's n_rep = 4 in bf16, some 1.3% of the tensor cores'
 // rate): 2 * B * cache_len * Hkv * D * 2 bytes / 3.35 TB/s, 0.32 ms at
-// B = 8, cache_len = 32,768, Hkv = 8, D = 128.  Two things kept a simpler
+// B = 8, cache_len = 32,768, Hkv = 8, D = 128 (under a window, the
+// min(cache_len, window) positions it keeps).  Two things kept a simpler
 // design (tile staged, wait, compute, repeat, all on the CUDA cores) below
 // that bound: no load was in flight while a block computed, and each K/V
 // element was unpacked from bf16 and multiplied once per query row, which
@@ -94,8 +104,9 @@ __host__ __device__ __forceinline__ size_t f32_smem_bytes(int n_rep, int d) {
 __global__ void __launch_bounds__(kThreads)
 flash_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, int s_len, int hkv, int n_rep, int d,
-                        int cache_len, int chunk, float scale, float* __restrict__ m_out,
-                        float* __restrict__ l_out, float* __restrict__ acc_out) {
+                        int lo, int cache_len, int chunk, float scale, float cap,
+                        float* __restrict__ m_out, float* __restrict__ l_out,
+                        float* __restrict__ acc_out) {
   const int split = blockIdx.x, n_splits = gridDim.x;
   const int b = blockIdx.y / hkv, h = blockIdx.y % hkv;
   const int hq = hkv * n_rep, dv = d / 4, kstride = d + 4;
@@ -123,7 +134,7 @@ flash_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 
   const long long pos_stride = static_cast<long long>(hkv) * d;  // elements between positions
   const long long base = (static_cast<long long>(b) * s_len * hkv + h) * d;
-  const int s_begin = split * chunk;
+  const int s_begin = lo + split * chunk;
   const int s_end = min(s_begin + chunk, cache_len);
   __syncthreads();
 
@@ -156,6 +167,7 @@ flash_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
           dot = fmaf(kk.w, qq.w, dot);
         }
         s = dot * scale;
+        if (cap > 0.f) s = cap * tanhf(s / cap);  // uniform across the block
       }
       p_s[i] = s;
     }
@@ -312,14 +324,18 @@ __host__ __device__ __forceinline__ size_t bf16_smem_bytes(int nt, int d) {
   return 1023 + bf16_work_bytes(nt, d) + 8 * kStages;
 }
 
-// NT N-tiles of 8 query rows (n_rep <= 8 NT); D <= 16 MF.
-template <int NT, int MF>
+// NT N-tiles of 8 query rows (n_rep <= 8 NT); D <= 16 MF.  Scores enter
+// the base-2 softmax as dot * scale_log2 or, with CAP, as
+// cap_log2 * tanh(dot * cap_in) (cap_in = scale / cap, cap_log2 =
+// cap * log2 e): the cap is taken on the base-e score, before the base-2
+// pre-scale.
+template <int NT, int MF, bool CAP>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv, int hkv, int n_rep,
-                         int d, int cache_len, int chunk, float scale_log2,
-                         float* __restrict__ m_out, float* __restrict__ l_out,
-                         float* __restrict__ acc_out) {
+                         int d, int lo, int cache_len, int chunk, float scale_log2,
+                         float cap_in, float cap_log2, float* __restrict__ m_out,
+                         float* __restrict__ l_out, float* __restrict__ acc_out) {
   constexpr int kRows = NT * 8;  // query rows of the N-tiles, n_rep of them real
   const int split = blockIdx.x, n_splits = gridDim.x;
   const int b = blockIdx.y / hkv, h = blockIdx.y % hkv;
@@ -337,7 +353,9 @@ flash_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __grid_const
   const uint32_t bar0 = ring_s + static_cast<uint32_t>(bf16_work_bytes(NT, d));  // [kStages]
 
   const long long q_row = (static_cast<long long>(b) * hkv + h) * n_rep;
-  const int s_begin = split * chunk;
+  // a window's first split starts at lo, off the 64-position tile: the
+  // tensor map takes boxes at any position
+  const int s_begin = lo + split * chunk;
   const int s_end = min(s_begin + chunk, cache_len);
   const int n_tiles = (s_end - s_begin + kTile - 1) / kTile;
 
@@ -434,10 +452,17 @@ flash_decode_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __grid_const
     uint32_t pb[NT][2];
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      const float x0 = ok0 ? sc[nt][0] * scale_log2 : kNegInf;
-      const float x1 = ok0 ? sc[nt][1] * scale_log2 : kNegInf;
-      const float x2 = ok1 ? sc[nt][2] * scale_log2 : kNegInf;
-      const float x3 = ok1 ? sc[nt][3] * scale_log2 : kNegInf;
+      if constexpr (CAP) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = cap_log2 * tanhf(sc[nt][e] * cap_in);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] *= scale_log2;
+      }
+      const float x0 = ok0 ? sc[nt][0] : kNegInf;
+      const float x1 = ok0 ? sc[nt][1] : kNegInf;
+      const float x2 = ok1 ? sc[nt][2] : kNegInf;
+      const float x3 = ok1 ? sc[nt][3] : kNegInf;
       float mx0 = fmaxf(x0, x2), mx1 = fmaxf(x1, x3);
 #pragma unroll
       for (int off = 4; off < 32; off <<= 1) {
@@ -552,24 +577,27 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ m_in,
 
 struct Args {
   const void *q, *k, *v;
-  int b, s_len, hkv, n_rep, d, cache_len, chunk, n_splits;
-  float scale;
+  int b, s_len, hkv, n_rep, d, lo, cache_len, chunk, n_splits;
+  float scale, cap;  // cap 0: no soft-cap
   float *m, *l, *acc;
   void* out;
   cudaStream_t stream;
 };
 
-// the bf16 kernel's instantiation for (n_rep, D): NT the power of two
+// the bf16 kernel's instantiation for (n_rep, D, cap): NT the power of two
 // >= n_rep / 8; MF 8 (D <= 128) or 16 when NT is 1, else 16 / NT, which
 // n_rep * D <= 1024 always leaves room for
-template <typename F> int with_bf16_kernel(int n_rep, int d, F&& f) {
+template <bool CAP, typename F> int with_bf16_kernel_of(int n_rep, int d, F&& f) {
   const int nt = (n_rep + 7) / 8;
-  if (nt == 1) return d <= 128 ? f(flash_decode_bf16_kernel<1, 8>, 1)
-                               : f(flash_decode_bf16_kernel<1, 16>, 1);
-  if (nt <= 2) return f(flash_decode_bf16_kernel<2, 8>, 2);
-  if (nt <= 4) return f(flash_decode_bf16_kernel<4, 4>, 4);
-  if (nt <= 8) return f(flash_decode_bf16_kernel<8, 2>, 8);
-  return f(flash_decode_bf16_kernel<16, 1>, 16);
+  if (nt == 1) return d <= 128 ? f(flash_decode_bf16_kernel<1, 8, CAP>, 1)
+                               : f(flash_decode_bf16_kernel<1, 16, CAP>, 1);
+  if (nt <= 2) return f(flash_decode_bf16_kernel<2, 8, CAP>, 2);
+  if (nt <= 4) return f(flash_decode_bf16_kernel<4, 4, CAP>, 4);
+  if (nt <= 8) return f(flash_decode_bf16_kernel<8, 2, CAP>, 8);
+  return f(flash_decode_bf16_kernel<16, 1, CAP>, 16);
+}
+template <typename F> int with_bf16_kernel(int n_rep, int d, bool cap, F&& f) {
+  return cap ? with_bf16_kernel_of<true>(n_rep, d, f) : with_bf16_kernel_of<false>(n_rep, d, f);
 }
 
 // cuTensorMapEncodeTiled, a driver function, reached through the runtime
@@ -618,20 +646,22 @@ int launch_split(const Args& a, bool bf16) {
     if (int err = allow_smem(flash_decode_f32_kernel, smem)) return err;
     flash_decode_f32_kernel<<<grid, kThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-        static_cast<const float*>(a.v), a.s_len, a.hkv, a.n_rep, a.d, a.cache_len, a.chunk,
-        a.scale, a.m, a.l, a.acc);
+        static_cast<const float*>(a.v), a.s_len, a.hkv, a.n_rep, a.d, a.lo, a.cache_len,
+        a.chunk, a.scale, a.cap, a.m, a.l, a.acc);
     return static_cast<int>(cudaGetLastError());
   }
   constexpr float kLog2e = 1.4426950408889634f;
   CUtensorMap tk, tv;
   if (int err = kv_map(&tk, a.k, a.b, a.s_len, a.hkv, a.d, a.cache_len)) return err;
   if (int err = kv_map(&tv, a.v, a.b, a.s_len, a.hkv, a.d, a.cache_len)) return err;
-  return with_bf16_kernel(a.n_rep, a.d, [&](auto kernel, int nt) {
+  const bool cap = a.cap > 0.f;
+  const float cap_in = cap ? a.scale / a.cap : 0.f, cap_log2 = a.cap * kLog2e;
+  return with_bf16_kernel(a.n_rep, a.d, cap, [&](auto kernel, int nt) {
     const size_t smem = bf16_smem_bytes(nt, a.d);
     if (int err = allow_smem(kernel, smem)) return err;
     kernel<<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q), tk, tv, a.hkv, a.n_rep, a.d, a.cache_len,
-        a.chunk, a.scale * kLog2e, a.m, a.l, a.acc);
+        static_cast<const __nv_bfloat16*>(a.q), tk, tv, a.hkv, a.n_rep, a.d, a.lo,
+        a.cache_len, a.chunk, a.scale * kLog2e, cap_in, cap_log2, a.m, a.l, a.acc);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -639,14 +669,15 @@ int launch_split(const Args& a, bool bf16) {
 }  // namespace
 
 // bf16: 1 for bfloat16 tensors, 0 for float32.  The wrapper checks the
-// contract: D % 8 == 0, D <= 256, n_rep * D <= 1024, 1 <= cache_len <= S,
-// contiguous 16-byte-aligned tensors, and splits of `chunk` positions that
-// are all non-empty; m/l hold B * Hq * n_splits floats, acc that times D.
+// contract: D % 8 == 0, D <= 256, n_rep * D <= 1024, 0 <= lo < cache_len <=
+// S, cap 0 (none) or > 0, contiguous 16-byte-aligned tensors, and splits
+// of `chunk` positions from lo that are all non-empty; m/l hold
+// B * Hq * n_splits floats, acc that times D.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, int bf16, int b,
-                                   int s_len, int hkv, int n_rep, int d, int cache_len,
-                                   int chunk, int n_splits, float scale, void* m_buf,
+                                   int s_len, int hkv, int n_rep, int d, int lo, int cache_len,
+                                   int chunk, int n_splits, float scale, float cap, void* m_buf,
                                    void* l_buf, void* acc_buf, void* out, void* stream) {
-  const Args a{q, k, v, b, s_len, hkv, n_rep, d, cache_len, chunk, n_splits, scale,
+  const Args a{q, k, v, b, s_len, hkv, n_rep, d, lo, cache_len, chunk, n_splits, scale, cap,
                static_cast<float*>(m_buf), static_cast<float*>(l_buf),
                static_cast<float*>(acc_buf), out, static_cast<cudaStream_t>(stream)};
   if (int err = launch_split(a, bf16 != 0)) return err;
@@ -671,17 +702,18 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, 
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// Blocks of the split kernel that one SM holds at once for (n_rep, D), as
-// the CUDA runtime computes it from registers and shared memory: the
-// wrapper's split plan fills the card in waves of this many blocks per SM.
-extern "C" int flash_decode_blocks_per_sm(int bf16, int n_rep, int d, int* out) {
+// Blocks of the split kernel that one SM holds at once for (n_rep, D, cap
+// or none), as the CUDA runtime computes it from registers and shared
+// memory: the wrapper's split plan fills the card in waves of this many
+// blocks per SM.
+extern "C" int flash_decode_blocks_per_sm(int bf16, int n_rep, int d, int cap, int* out) {
   if (!bf16) {
     const size_t smem = f32_smem_bytes(n_rep, d);
     if (int err = allow_smem(flash_decode_f32_kernel, smem)) return err;
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         out, flash_decode_f32_kernel, kThreads, smem));
   }
-  return with_bf16_kernel(n_rep, d, [&](auto kernel, int nt) {
+  return with_bf16_kernel(n_rep, d, cap != 0, [&](auto kernel, int nt) {
     const size_t smem = bf16_smem_bytes(nt, d);
     if (int err = allow_smem(kernel, smem)) return err;
     return static_cast<int>(

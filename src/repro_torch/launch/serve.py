@@ -8,8 +8,12 @@ and wave coalescing stats.  Knobs: ``--clients``, ``--requests`` (per
 client), ``--replicas``, ``--max-live-waves``, ``--flush-deadline-ms``,
 ``--cost-model <json>`` (from ``core.serving.measure_dispatch_costs``).
 
-LM archs: prefill a batch of prompts, then greedy-decode N tokens with the
-KV cache (``flash_decode`` on the card).  RecSys archs: a batched scoring
+LM archs (llama3-8b, gemma2-9b, olmo-1b, phi3.5-moe-42b-a6.6b,
+arctic-480b): prefill a batch of prompts, then greedy-decode N tokens with
+the KV cache (``flash_decode`` on the card, with gemma2's sliding window
+and soft-cap).  ``--full`` on one 80 GB card fits llama3-8b (17 GB of
+bf16 weights), gemma2-9b (18.5 GB) and olmo-1b (2.4 GB); phi3.5-moe (84 GB)
+and arctic-480b (~960 GB) do not.  RecSys archs: a batched scoring
 loop (the ``serve_p99`` kind) with latency stats.  Runs the reduced smoke
 config unless ``--full`` (the published config), on the GPU unless
 ``--device cpu``.  Weights are random, drawn from a seeded generator.

@@ -138,7 +138,8 @@ def attention_block(x: torch.Tensor, w: dict, *, n_heads: int,
     (B, S, Hkv, Dh); the new token's K/V is written at ``cache_len`` IN
     PLACE (the JAX version returns new caches from dynamic_update_slice)
     and (out, (k_cache, v_cache)) is returned.  The decode attention is
-    ``flash_decode`` over ``cache_len + 1`` positions.
+    ``flash_decode`` over ``cache_len + 1`` positions, with the layer's
+    window and soft-cap.
     """
     if seq_parallel is not None:
         raise NotImplementedError("seq_parallel attention is not yet ported")
@@ -162,15 +163,8 @@ def attention_block(x: torch.Tensor, w: dict, *, n_heads: int,
         cache_len = int(cache_len)
         k_cache[:, cache_len:cache_len + s] = k
         v_cache[:, cache_len:cache_len + s] = v
-        if window is None and attn_softcap is None:
-            out = flash_decode(q[:, 0], k_cache, v_cache, cache_len + 1)[:, None]
-        elif x.device.type == "cpu":
-            out = decode_attention(q, k_cache, v_cache, cache_len + 1,
-                                   window=window, attn_softcap=attn_softcap)
-        else:
-            raise NotImplementedError(
-                "decode with a window or soft-capping is not yet ported to "
-                "the card (flash_decode has neither)")
+        out = flash_decode(q[:, 0], k_cache, v_cache, cache_len + 1,
+                           window=window, softcap=attn_softcap)[:, None]
         new_kv = (k_cache, v_cache)
     out = out.reshape(b, s, n_heads * d_head) @ w["wo"]
     return out, new_kv

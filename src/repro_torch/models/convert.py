@@ -51,7 +51,9 @@ def _mlp(tree: dict, sizes, device, where: str) -> dict:
 
 
 def lm_params_from_numpy(cfg: LMConfig, tree: dict, device=None) -> dict:
-    """A dense LM's pytree (``transformer.init_params`` keys)."""
+    """An LM's pytree (``transformer.init_params`` keys: the post-norms
+    with ``post_norm``, ``moe`` in place of ``mlp`` for an MoE model, and
+    ``dense`` beside it with ``dense_residual``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     n, d, dh = cfg.n_layers, cfg.d_model, cfg.head_dim
@@ -60,13 +62,29 @@ def lm_params_from_numpy(cfg: LMConfig, tree: dict, device=None) -> dict:
                     "wv": (n, d, cfg.n_kv_heads * dh),
                     "wo": (n, cfg.n_heads * dh, d),
                     "ln_attn": (n, d), "ln_ffn": (n, d)}
+    if cfg.post_norm:
+        layer_shapes.update(ln_attn_post=(n, d), ln_ffn_post=(n, d))
+
+    def swiglu(lead, f):
+        return {"w_gate": (*lead, d, f), "w_up": (*lead, d, f),
+                "w_down": (*lead, f, d)}
+
+    subtrees = {}
+    if cfg.is_moe:
+        e = cfg.n_experts
+        subtrees["moe"] = {"router": (n, d, e),
+                           **swiglu((n, e), cfg.moe_dff or cfg.d_ff)}
+        if cfg.dense_residual:
+            subtrees["dense"] = swiglu((n,), cfg.dense_residual_dff
+                                       or cfg.d_ff)
+    else:
+        subtrees["mlp"] = swiglu((n,), cfg.d_ff)
     layers = dict(tree["layers"])
-    mlp = layers.pop("mlp")
+    subs = {name: layers.pop(name, {}) for name in subtrees}
     out_layers = _take(layers, list(layer_shapes), layer_shapes, dev, "layers")
-    out_layers["mlp"] = _take(
-        mlp, ["w_gate", "w_up", "w_down"],
-        {"w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
-         "w_down": (n, cfg.d_ff, d)}, dev, "layers.mlp")
+    for name, shapes in subtrees.items():
+        out_layers[name] = _take(subs[name], list(shapes), shapes, dev,
+                                 f"layers.{name}")
     top = {k: v for k, v in tree.items() if k != "layers"}
     keys = ["embed", "ln_final"] + ([] if cfg.tie_embeddings else ["unembed"])
     params = _take(top, keys, {"embed": (cfg.vocab, d), "ln_final": (d,),

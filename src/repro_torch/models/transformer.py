@@ -1,16 +1,20 @@
-"""The LM-family transformer, dense configurations (llama3-8b).
+"""The LM-family transformer: llama3-8b, gemma2-9b (local and global
+layers alternating, attention and final logit soft-capping, sandwich
+norms), olmo-1b (non-parametric LayerNorm), phi3.5-moe and arctic-480b
+(MoE FFN; arctic adds a dense FFN in parallel).
 
 Parameters are the JAX package's pytree as a dict of tensors: per-layer
 weights stacked on a leading (L, ...) axis, run by a Python loop over the
 layers.  Serving is ``prefill`` (blockwise attention, returns the per-layer
-K/V) and ``decode_step`` (one token; ``flash_decode`` on the card, the KV
-cache updated in place).  Not yet ported, and refused by
-``check_supported``: MoE layers, sliding-window layers, attention logit
-soft-capping (``flash_decode`` has neither a window nor a softcap), sandwich
-norms and the mesh fields; training (``lm_loss``) waits as well.
+K/V) and ``decode_step`` (one token; ``flash_decode`` on the card, with
+the layer's window and soft-cap, the KV cache updated in place).  Not yet
+ported, and refused by ``check_supported``: the mesh fields (sharded MoE
+dispatch, 2D activation sharding, sequence-parallel attention); training
+(``lm_loss``) waits as well.
 """
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 
 import torch
@@ -19,6 +23,7 @@ from ..device import resolve_device
 from .attention import attention_block
 from .layers import (dense_init, embed_init, layer_norm_nonparam, normal,
                      rms_norm, softcap, torch_dtype)
+from .moe import moe_ffn
 
 
 @dataclass(frozen=True)
@@ -83,12 +88,20 @@ class LMConfig:
 
     def param_count(self) -> int:
         """Analytic N (all params)."""
+        return self._count(self.n_experts)
+
+    def active_param_count(self) -> int:
+        """N_active: with MoE, only the ``top_k`` routed experts count."""
+        return self._count(self.top_k) if self.is_moe else self.param_count()
+
+    def _count(self, experts: int) -> int:
+        """Params with ``experts`` experts' FFNs a layer (an MoE model)."""
         d, dh = self.d_model, self.head_dim
         attn = d * (self.n_heads + 2 * self.n_kv_heads) * dh \
             + self.n_heads * dh * d
         if self.is_moe:
-            f = self.moe_dff or self.d_ff
-            ffn = self.n_experts * 3 * d * f + d * self.n_experts
+            ffn = experts * 3 * d * (self.moe_dff or self.d_ff) \
+                + d * self.n_experts
             if self.dense_residual:
                 ffn += 3 * d * (self.dense_residual_dff or self.d_ff)
         else:
@@ -98,19 +111,11 @@ class LMConfig:
 
 
 def check_supported(cfg: LMConfig) -> None:
-    """Raise for the parts of the LM family the port does not run yet."""
-    missing = [what for what, on in (
-        ("MoE layers", cfg.is_moe),
-        ("sliding-window layers", cfg.sliding_window is not None
-         or cfg.local_global_period > 0),
-        ("attention soft-capping", cfg.attn_softcap is not None),
-        ("sandwich norms", cfg.post_norm),
-        ("mesh fields", bool(cfg.act_batch_axes or cfg.act_model_axis
-                             or cfg.moe_expert_axis or cfg.moe_batch_axes
-                             or cfg.attn_seq_parallel))) if on]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not yet "
-                                  f"ported")
+    """Raise for the parts of the LM family the port does not run yet: the
+    mesh fields."""
+    if (cfg.act_batch_axes or cfg.act_model_axis or cfg.moe_expert_axis
+            or cfg.moe_batch_axes or cfg.attn_seq_parallel):
+        raise NotImplementedError(f"{cfg.name}: mesh fields not yet ported")
 
 
 # --------------------------------------------------------------------- init
@@ -121,23 +126,39 @@ def init_params(cfg: LMConfig, gen: torch.Generator) -> dict:
     dt, dev = cfg.compute_dtype, gen.device
     d, dh, n = cfg.d_model, cfg.head_dim, cfg.n_layers
 
-    def stack(shape, fan_in):
-        out = torch.empty((n, *shape), dtype=dt, device=dev)
-        for i in range(n):             # one layer's f32 draw at a time
+    def stack(shape, fan_in, experts=None):
+        lead = (n,) if experts is None else (n, experts)
+        out = torch.empty((*lead, *shape), dtype=dt, device=dev)
+        # one layer's (or one expert's) f32 draw at a time: one arctic
+        # layer's w_gate drawn whole in f32 would be 17.8 GB
+        for i in itertools.product(*map(range, lead)):
             out[i] = normal(gen, shape, fan_in ** -0.5, dt)
         return out
+
+    def zeros():
+        return torch.zeros((n, d), dtype=dt, device=dev)
+
+    def swiglu(f, experts=None):
+        return {"w_gate": stack((d, f), d, experts),
+                "w_up": stack((d, f), d, experts),
+                "w_down": stack((f, d), f, experts)}
 
     layers = {
         "wq": stack((d, cfg.n_heads * dh), d),
         "wk": stack((d, cfg.n_kv_heads * dh), d),
         "wv": stack((d, cfg.n_kv_heads * dh), d),
         "wo": stack((cfg.n_heads * dh, d), cfg.n_heads * dh),
-        "ln_attn": torch.zeros((n, d), dtype=dt, device=dev),
-        "ln_ffn": torch.zeros((n, d), dtype=dt, device=dev),
-        "mlp": {"w_gate": stack((d, cfg.d_ff), d),
-                "w_up": stack((d, cfg.d_ff), d),
-                "w_down": stack((cfg.d_ff, d), cfg.d_ff)},
+        "ln_attn": zeros(), "ln_ffn": zeros(),
     }
+    if cfg.post_norm:
+        layers["ln_attn_post"], layers["ln_ffn_post"] = zeros(), zeros()
+    if cfg.is_moe:
+        layers["moe"] = {"router": stack((d, cfg.n_experts), d),
+                         **swiglu(cfg.moe_dff or cfg.d_ff, cfg.n_experts)}
+        if cfg.dense_residual:
+            layers["dense"] = swiglu(cfg.dense_residual_dff or cfg.d_ff)
+    else:
+        layers["mlp"] = swiglu(cfg.d_ff)
     params = {"embed": embed_init(gen, cfg.vocab, d, dt), "layers": layers,
               "ln_final": torch.zeros(d, dtype=dt, device=dev)}
     if not cfg.tie_embeddings:
@@ -152,10 +173,23 @@ def _norm(cfg: LMConfig, x: torch.Tensor, w: torch.Tensor | None):
     return rms_norm(x, w)
 
 
-def _ffn(cfg: LMConfig, x: torch.Tensor, lw: dict) -> torch.Tensor:
-    mw = lw["mlp"]
-    return (torch.nn.functional.silu(x @ mw["w_gate"]) * (x @ mw["w_up"])) \
-        @ mw["w_down"]
+def _swiglu(x: torch.Tensor, w: dict) -> torch.Tensor:
+    return (torch.nn.functional.silu(x @ w["w_gate"]) * (x @ w["w_up"])) \
+        @ w["w_down"]
+
+
+def _ffn(cfg: LMConfig, x: torch.Tensor, lw: dict):
+    """The FFN sub-layer: (y, MoE aux loss: an f32 scalar tensor, 0.0 for a
+    dense layer)."""
+    if not cfg.is_moe:
+        return _swiglu(x, lw["mlp"]), 0.0
+    b, s, d = x.shape
+    y, aux = moe_ffn(x.reshape(b * s, d), lw["moe"], n_experts=cfg.n_experts,
+                     top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    y = y.reshape(b, s, d)
+    if cfg.dense_residual:
+        y = y + _swiglu(x, lw["dense"])
+    return y, aux
 
 
 def _layer_weights(params: dict, i: int) -> dict:
@@ -165,17 +199,34 @@ def _layer_weights(params: dict, i: int) -> dict:
                 else v[i]) for k, v in lw.items()}
 
 
-def _layer(cfg: LMConfig, x: torch.Tensor, lw: dict, *, positions=None,
-           kv_cache=None, cache_len=None):
-    """One transformer block.  Returns (x', new_kv)."""
-    h = _norm(cfg, x, lw["ln_attn"])
+def layer_window(cfg: LMConfig, i: int) -> int | None:
+    """The attention window of layer ``i`` (None: the whole cache)."""
+    if cfg.local_global_period == 0 or cfg.layer_is_local(i):
+        return cfg.sliding_window
+    return None
+
+
+def _layer(cfg: LMConfig, x: torch.Tensor, lw: dict, i: int, *,
+           positions=None, kv_cache=None, cache_len=None):
+    """Block ``i``: with local/global alternation a local layer attends
+    within ``cfg.sliding_window`` and a global one over the whole cache (the
+    JAX package's window of 1 << 30 masks nothing); without it every layer
+    takes the window.  Returns (x', new_kv, MoE aux loss)."""
+    window = layer_window(cfg, i)
     a, new_kv = attention_block(
-        h, lw, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        d_head=cfg.head_dim, rope_theta=cfg.rope_theta,
-        positions=positions, kv_cache=kv_cache, cache_len=cache_len,
-        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+        _norm(cfg, x, lw["ln_attn"]), lw, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
+        rope_theta=cfg.rope_theta, window=window,
+        attn_softcap=cfg.attn_softcap, positions=positions,
+        kv_cache=kv_cache, cache_len=cache_len, q_chunk=cfg.q_chunk,
+        kv_chunk=cfg.kv_chunk)
+    if cfg.post_norm:
+        a = _norm(cfg, a, lw["ln_attn_post"])
     x = x + a
-    return x + _ffn(cfg, _norm(cfg, x, lw["ln_ffn"]), lw), new_kv
+    y, aux = _ffn(cfg, _norm(cfg, x, lw["ln_ffn"]), lw)
+    if cfg.post_norm:
+        y = _norm(cfg, y, lw["ln_ffn_post"])
+    return x + y, new_kv, aux
 
 
 def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor):
@@ -187,19 +238,24 @@ def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor):
 
 def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
             positions=None, return_kv: bool = False):
-    """tokens (B, S) -> final hidden (B, S, D) and, with ``return_kv``, the
-    stacked (L, B, S, Hkv, Dh) K and V for the cache."""
+    """tokens (B, S) -> final hidden (B, S, D), the MoE aux loss summed over
+    the layers (an f32 scalar, 0 for a dense model) and, with
+    ``return_kv``, the stacked (L, B, S, Hkv, Dh) K and V for the cache."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
+    aux = 0.0
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v) = _layer(cfg, x, _layer_weights(params, i),
-                           positions=positions)
+        x, (k, v), a = _layer(cfg, x, _layer_weights(params, i), i,
+                              positions=positions)
+        aux = aux + a
         if return_kv:
             ks.append(k)
             vs.append(v)
     x = _norm(cfg, x, params["ln_final"])
-    return x, ((torch.stack(ks), torch.stack(vs)) if return_kv else None)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    return x, aux, ((torch.stack(ks), torch.stack(vs)) if return_kv
+                    else None)
 
 
 def _unembed(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -219,7 +275,7 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
 
 def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor):
     """tokens (B, S) -> (cache filled to S, last-position logits (B, V))."""
-    h, (k, v) = forward(cfg, params, tokens, return_kv=True)
+    h, _, (k, v) = forward(cfg, params, tokens, return_kv=True)
     return {"k": k, "v": v}, _unembed(cfg, params, h[:, -1:, :])[:, 0]
 
 
@@ -232,9 +288,9 @@ def decode_step(cfg: LMConfig, params: dict, cache: dict,
     check_supported(cfg)
     x = _embed(cfg, params, tokens[:, None])
     for i in range(cfg.n_layers):
-        x, _ = _layer(cfg, x, _layer_weights(params, i),
-                      kv_cache=(cache["k"][i], cache["v"][i]),
-                      cache_len=cache_len)
+        x, _, _ = _layer(cfg, x, _layer_weights(params, i), i,
+                         kv_cache=(cache["k"][i], cache["v"][i]),
+                         cache_len=cache_len)
     x = _norm(cfg, x, params["ln_final"])
     logits = _unembed(cfg, params, x)[:, 0].to(torch.float32)
     return cache, logits.argmax(-1).to(torch.int32), logits

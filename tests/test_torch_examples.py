@@ -1,12 +1,14 @@
 """The port's copies of ``examples/quickstart.py``, ``batched_query.py``,
-``tail_ingest.py`` and ``distributed_query.py`` run end to end on the CPU at
-a tiny size, and their checks of their own answers hold."""
+``tail_ingest.py``, ``distributed_query.py`` and ``serve_lm.py`` run end to
+end on the CPU at a tiny size, and their checks of their own answers
+hold."""
 import os
 import subprocess
 import sys
 from pathlib import Path
 
-from repro_torch.examples import batched_query, quickstart, tail_ingest
+from repro_torch.examples import (batched_query, quickstart, serve_lm,
+                                  tail_ingest)
 
 
 def test_quickstart_runs_on_cpu(capsys):
@@ -54,3 +56,11 @@ def test_distributed_query_runs_on_cpu_over_8_logical_shards():
         "True" in out
     assert "surviving segments kept their shards: True, wave equal to the " \
         "host path: True" in out
+
+
+def test_serve_lm_runs_on_cpu(capsys):
+    """gemma2-9b's smoke config, batch 4, prompt 16, 12 tokens: its
+    prompt is longer than the smoke window of 8."""
+    assert serve_lm.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[serve] gemma2-smoke on cpu: generated (4, 12) tokens" in out

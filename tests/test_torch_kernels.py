@@ -36,7 +36,7 @@ from repro_torch.kernels.csc_probe.ref import csc_probe_ref
 from repro_torch.kernels.embedding_bag.ops import embedding_bag_sum
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.flash_decode.ops import (blocks_per_sm, flash_decode,
-                                                  split_plan)
+                                                  split_plan, window_start)
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 from repro_torch.kernels.retrieval_score.ops import (retrieval_scores,
                                                      retrieval_topk)
@@ -79,6 +79,7 @@ def jx():
     from repro.kernels.retrieval_score.ops import (retrieval_scores,
                                                    retrieval_topk)
     from repro.kernels.retrieval_score.ref import retrieval_score_ref
+    from repro.models.attention import decode_attention
     return SimpleNamespace(
         jnp=jnp, mphf=mphf, probe=mphf_probe_arrs, mphf_probe=mphf_probe,
         reduce=bitset_reduce,
@@ -89,7 +90,8 @@ def jx():
         CSCSketch=CSCSketch, ebag=embedding_bag_sum,
         ebag_ref=embedding_bag_ref, flash_decode=flash_decode,
         flash_decode_ref=flash_decode_ref, scores=retrieval_scores,
-        topk=retrieval_topk, scores_ref=retrieval_score_ref)
+        topk=retrieval_topk, scores_ref=retrieval_score_ref,
+        decode_attention=decode_attention)
 
 
 # ----------------------------------------------------------------- inputs
@@ -496,6 +498,26 @@ def _decode_inputs(seed, b, s, hq, hkv, d):
             _normal(seed + 2, b, s, hkv, d))
 
 
+# (b, s, hq, hkv, d, cache_len, window, softcap): gemma2's local and global
+# layers at CPU size (window and cap, cap alone), a window that starts off
+# the 64-position tile, a window wider than cache_len, window 1, a window
+# alone
+WINDOW_CASES = [(2, 300, 8, 4, 32, 257, 100, 50.0),
+                (2, 300, 8, 4, 32, 257, None, 50.0),
+                (1, 200, 4, 1, 64, 131, 70, 30.0),
+                (2, 130, 4, 2, 16, 77, 200, 50.0),
+                (1, 64, 4, 1, 16, 40, 1, 30.0),
+                (2, 300, 6, 3, 32, 290, 64, None)]
+
+
+def _capped_inputs(seed, b, s, hq, hkv, d, cap):
+    """``_decode_inputs`` with q scaled by 0.8 cap: the scores' std is then
+    0.8 cap, so that the largest reach 2-4x the cap and capping moves the
+    output (at unit scale a cap of 50 moves nothing)."""
+    q, k, v = _decode_inputs(seed, b, s, hq, hkv, d)
+    return q * (0.8 * cap if cap else 1.0), k, v
+
+
 @pytest.mark.parametrize("c,d,x_off,q_off", _retrieval_params(RETRIEVAL_CASES))
 def test_retrieval_score_plain_matches_pallas_and_jnp(jx, c, d, x_off, q_off):
     jnp = jx.jnp
@@ -569,6 +591,36 @@ def test_flash_decode_plain_bf16_matches_pallas_and_jnp(jx):
                                    atol=2 ** -8 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("b,s,hq,hkv,d,clen,window,cap", WINDOW_CASES)
+def test_flash_decode_plain_window_softcap_matches_jax(jx, b, s, hq, hkv, d,
+                                                       clen, window, cap):
+    """The plain version with a window and a soft-cap, and the wrapper on
+    CPU tensors, against the JAX package's ``decode_attention`` (the jnp
+    decode that its gemma2 layers run), in f32."""
+    jnp = jx.jnp
+    q, k, v = _capped_inputs(b + s + clen, b, s, hq, hkv, d, cap)
+    want = np.asarray(jx.decode_attention(
+        jnp.asarray(q)[:, None], jnp.asarray(k), jnp.asarray(v),
+        jnp.int32(clen), window=window, attn_softcap=cap))[:, 0]
+    args = (*map(torch.from_numpy, (q, k, v)), clen)
+    for got in (flash_decode_ref(*args, window=window, softcap=cap),
+                flash_decode(*args, window=window, softcap=cap)):
+        assert got.dtype == torch.float32 and got.shape == (b, hq, d)
+        np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+def test_flash_decode_window_start():
+    """A window reads [cache_len - window, cache_len), all of the cache
+    when it is as wide or wider; split_plan then cuts only those
+    positions."""
+    assert window_start(4639, None) == 0
+    assert window_start(4639, 4096) == 543
+    assert window_start(77, 200) == 0 and window_start(77, 77) == 0
+    assert window_start(40, 1) == 39
+    chunk, n = split_plan(4, 8, 4639 - 543, 132, 1)
+    assert chunk % 64 == 0 and (n - 1) * chunk < 4096 <= n * chunk
+
+
 # the edges of the CUDA kernel's ring and fragments, at CPU size: cache_len
 # 1, within one warp's 16 positions, across warps, one 64-position tile,
 # past it, one below the 3-tile ring; n_rep 1, 3, 8 and 16; D 128, 64,
@@ -607,7 +659,9 @@ def test_flash_decode_bf16_tolerance_rejects_planted_faults(b, s, clen):
     output, not with v, so it separates: at the LM path's own call and at
     a 32k cache (where the output is ~1/100 of v), the attention with the
     last of the B = 8 plan's splits dropped, or the newest position
-    dropped, falls outside it."""
+    dropped, falls outside it.  So does, under a window off the tile and a
+    soft-cap of 50 with q scaled past the cap (a gemma2 local layer), the
+    same call with the window ignored or with the soft-cap ignored."""
     hq, hkv, d = 32, 8, 128
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _decode_inputs(11, b, s, hq, hkv, d))
@@ -619,6 +673,16 @@ def test_flash_decode_bf16_tolerance_rejects_planted_faults(b, s, clen):
         with pytest.raises(AssertionError):
             torch.testing.assert_close(
                 flash_decode(q, k, v, n).to(torch.float32), want, **tol)
+    window, cap = clen // 2 + 37, 50.0
+    q = (q.to(torch.float32) * 0.8 * cap).to(torch.bfloat16)
+    want = flash_decode(q, k, v, clen, window=window,
+                        softcap=cap).to(torch.float32)
+    tol = dict(rtol=2 ** -7, atol=2 ** -8 * float(want.abs().max()))
+    for kw in (dict(softcap=cap), dict(window=window)):
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(
+                flash_decode(q, k, v, clen, **kw).to(torch.float32), want,
+                **tol)
 
 
 def test_flash_decode_split_plan_covers_the_cache():
@@ -691,6 +755,9 @@ def test_wrappers_reject_bad_inputs():
         flash_decode(torch.zeros((1, 3, 8)), kv, kv, 5)
     with pytest.raises(ValueError):
         flash_decode(q.to(torch.float64), kv, kv, 5)
+    for kw in (dict(window=0), dict(softcap=0.0), dict(softcap=-50.0)):
+        with pytest.raises(ValueError):
+            flash_decode(q, kv, kv, 5, **kw)
 
 
 # ------------------------------------------------------ CUDA, on the card
@@ -935,6 +1002,7 @@ def test_cuda_flash_decode_blocks_per_sm(cuda):
     the kernel that runs: the bf16 ring sets it at D = 128 and 256."""
     assert blocks_per_sm(4, 128, torch.bfloat16, cuda) == H100_BF16_D128_PER_SM
     assert blocks_per_sm(4, 256, torch.bfloat16, cuda) == 1
+    assert blocks_per_sm(2, 256, torch.bfloat16, cuda, capped=True) == 1
     for n_rep, d in ((1, 8), (16, 64), (128, 8), (3, 40)):
         assert blocks_per_sm(n_rep, d, torch.bfloat16, cuda) >= 1
         assert blocks_per_sm(n_rep, d, torch.float32, cuda) >= 1
@@ -964,6 +1032,35 @@ def test_cuda_flash_decode_matches_plain(cuda, b, s, hq, hkv, d, clen, dtype):
     torch.cuda.synchronize()
     assert flash_decode.launch_count == before + 1 and got.dtype == dtype
     want = flash_decode_ref(q, k, v, clen).to(torch.float32)
+    tol = F32_TOL if dtype == torch.float32 else dict(
+        rtol=2 ** -7, atol=2 ** -8 * float(want.abs().max()))
+    torch.testing.assert_close(got.to(torch.float32), want, **tol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,s,hq,hkv,d,clen,window,cap", WINDOW_CASES + [
+    # gemma2-9b's own decode call (phase 8's last step): a local layer and
+    # a global one
+    (4, 4640, 16, 8, 256, 4639, 4096, 50.0),
+    (4, 4640, 16, 8, 256, 4639, None, 50.0),
+    # windows off the tile across the ring: 1 to 3 tiles, split starts off
+    # the tile at B * Hkv = 256
+    (32, 600, 32, 8, 128, 599, 130, 50.0), (32, 600, 32, 8, 128, 577, 191, None),
+    (2, 5000, 8, 8, 128, 4999, 4097, 30.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_decode_window_softcap_matches_plain(
+        cuda, b, s, hq, hkv, d, clen, window, cap, dtype):
+    """The kernel with a window and a soft-cap against its plain version,
+    q scaled past the cap; tolerances as in test_cuda_flash_decode_
+    matches_plain."""
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in _capped_inputs(
+        b + s + clen, b, s, hq, hkv, d, cap))
+    before = flash_decode.launch_count
+    got = flash_decode(q, k, v, clen, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert flash_decode.launch_count == before + 1 and got.dtype == dtype
+    want = flash_decode_ref(q, k, v, clen, window=window,
+                            softcap=cap).to(torch.float32)
     tol = F32_TOL if dtype == torch.float32 else dict(
         rtol=2 ** -7, atol=2 ** -8 * float(want.abs().max()))
     torch.testing.assert_close(got.to(torch.float32), want, **tol)

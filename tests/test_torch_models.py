@@ -1,8 +1,9 @@
 """The port's model-serving paths against the JAX package, with weights
 carried across by ``repro_torch.models.convert``: the shared layers,
-blockwise and decode attention, llama3's smoke config through prefill,
-decode and greedy generation, two-tower retrieval and xDeepFM scoring.
-Inputs are made with numpy from a seed and handed to both packages.
+blockwise and decode attention, the MoE FFN, the smoke configs of the five
+LM archs (llama3, gemma2, olmo, phi3.5-moe, arctic) through prefill, decode
+and greedy generation, two-tower retrieval and xDeepFM scoring.  Inputs
+are made with numpy from a seed and handed to both packages.
 
 Tolerances: float32 throughout, 2e-5 for single layers and 2e-4 for whole
 models (as ``tests/test_models.py`` holds decode against prefill): the two
@@ -18,6 +19,7 @@ from repro_torch.launch import serve as port_serve
 from repro_torch.launch.steps import family_init, serve_fn
 from repro_torch.models import attention as pa
 from repro_torch.models import layers as pl
+from repro_torch.models import moe as pm
 from repro_torch.models import recsys as prs
 from repro_torch.models import transformer as ptf
 from repro_torch.models.convert import (lm_params_from_numpy,
@@ -32,11 +34,14 @@ from repro.configs import get_arch as ref_get_arch  # noqa: E402
 from repro.launch.steps import family_init as ref_family_init  # noqa: E402
 from repro.models import attention as ja  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
+from repro.models import moe as jm  # noqa: E402
 from repro.models import recsys as jrs  # noqa: E402
 from repro.models import transformer as jtf  # noqa: E402
 
 LAYER_TOL = dict(rtol=2e-5, atol=2e-5)
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)
+LM_ARCHS = ("llama3-8b", "gemma2-9b", "olmo-1b", "phi3.5-moe-42b-a6.6b",
+            "arctic-480b")
 
 
 def _close(got, want, tol):
@@ -138,18 +143,77 @@ def test_decode_attention_matches_reference(window, cap):
                        torch.from_numpy(np.array(ja.repeat_kv(jnp.asarray(k), 3))))
 
 
-# ----------------------------------------------------------------- llama3
+# -------------------------------------------------------------------- MoE
+def _moe_inputs(seed, t, d, e, f, tie=False):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(t, d)).astype(np.float32)
+    w = {"router": (rng.normal(size=(d, e)) * d ** -0.5).astype(np.float32),
+         "w_gate": (rng.normal(size=(e, d, f)) * d ** -0.5).astype(np.float32),
+         "w_up": (rng.normal(size=(e, d, f)) * d ** -0.5).astype(np.float32),
+         "w_down": (rng.normal(size=(e, f, d)) * f ** -0.5).astype(np.float32)}
+    if tie:                            # experts 2 and 5 route identically
+        w["router"][:, 5] = w["router"][:, 2]
+    return x, w
+
+
+@pytest.mark.parametrize("cf,tie", [(8.0, False), (1.0, False), (1.0, True)])
+def test_moe_ffn_matches_reference(cf, tie):
+    """Out and aux against the JAX ``moe_ffn``: at capacity factor 8 no
+    token is dropped, at 1.0 some are (and which ones depends on each
+    expert's queue order); with two experts whose router columns are
+    equal, every token ties between them and ``jax.lax.top_k`` takes the
+    lower index."""
+    t, d, e, f, k = 40, 16, 8, 24, 2
+    x, w = _moe_inputs(int(cf) + tie, t, d, e, f, tie)
+    kw = dict(n_experts=e, top_k=k, capacity_factor=cf)
+    got, aux = pm.moe_ffn(torch.from_numpy(x),
+                          {n: torch.from_numpy(a) for n, a in w.items()}, **kw)
+    want, jaux = jm.moe_ffn(jnp.asarray(x),
+                            {n: jnp.asarray(a) for n, a in w.items()}, **kw)
+    _close(got, want, LAYER_TOL)
+    _close(aux, jaux, LAYER_TOL)
+    cap = pm.capacity_of(t, e, k, cf)
+    probs = torch.softmax(torch.from_numpy(x @ w["router"]), -1)
+    routed = torch.bincount(pm.top_k_lower_first(probs, k)[1].reshape(-1),
+                            minlength=e)
+    assert (int(routed.max()) > cap) == (cf == 1.0)   # drops only at 1.0
+
+
+def test_top_k_breaks_ties_as_reference():
+    rng = np.random.default_rng(14)
+    probs = rng.integers(0, 4, (64, 128)).astype(np.float32) / 4
+    vals, idx = pm.top_k_lower_first(torch.from_numpy(probs), 3)
+    jvals, jidx = jax.lax.top_k(jnp.asarray(probs), 3)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jvals))
+    assert pm.capacity_of(8, 16, 2, 1.25) == 1      # decode: 8 tokens
+    assert pm.capacity_of(8, 128, 2, 1.25) == 1
+    assert pm.capacity_of(3, 2, 2, 8.0) == 3       # capped at T
+
+
+# ------------------------------------------------------------ the LM archs
+_LM_CASES = {}
+
+
+def _lm(arch):
+    """(JAX smoke config, port smoke config, JAX params, port params)."""
+    if arch not in _LM_CASES:
+        tree = _numpy_params(arch, 0)
+        cfg = get_arch(arch).smoke_config
+        _LM_CASES[arch] = (ref_get_arch(arch).smoke_config, cfg,
+                           jax.tree.map(jnp.asarray, tree),
+                           lm_params_from_numpy(cfg, tree, "cpu"))
+    return _LM_CASES[arch]
+
+
 @pytest.fixture(scope="module")
 def llama():
-    tree = _numpy_params("llama3-8b", 0)
-    cfg = get_arch("llama3-8b").smoke_config
-    return (ref_get_arch("llama3-8b").smoke_config, cfg,
-            jax.tree.map(jnp.asarray, tree),
-            lm_params_from_numpy(cfg, tree, "cpu"))
+    return _lm("llama3-8b")
 
 
-def test_llama3_prefill_decode_and_greedy_tokens_match_reference(llama):
-    jcfg, cfg, jp, pp = llama
+def _prefill_decode_and_greedy_tokens_match(jcfg, cfg, jp, pp):
+    """Prefill 2 x 24 tokens, then 8 greedy decode steps: logits, caches
+    and tokens against the JAX package."""
     toks = np.random.default_rng(4).integers(0, cfg.vocab, (2, 24)) \
         .astype(np.int32)
     jcache, jlogits = jtf.prefill(jcfg, jp, jnp.asarray(toks))
@@ -171,13 +235,36 @@ def test_llama3_prefill_decode_and_greedy_tokens_match_reference(llama):
         _close(step, jstep, MODEL_TOL)
         np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
     _close(full["k"], jfull["k"], MODEL_TOL)
+    _close(full["v"], jfull["v"], MODEL_TOL)
 
 
-def test_llama3_decode_matches_prefill_of_the_longer_prompt(llama):
+def test_llama3_prefill_decode_and_greedy_tokens_match_reference(llama):
+    _prefill_decode_and_greedy_tokens_match(*llama)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS[1:])
+def test_lm_prefill_decode_and_greedy_tokens_match_reference(arch):
+    """gemma2's 24-token prompt is longer than its smoke window of 8, so
+    its local layers' window bites in prefill and in every decode step;
+    the MoE archs' decode steps route 2 tokens at capacity 1."""
+    jcfg, cfg, jp, pp = _lm(arch)
+    assert vars(cfg) == vars(jcfg)
+    _prefill_decode_and_greedy_tokens_match(jcfg, cfg, jp, pp)
+
+
+def test_window_without_alternation_applies_to_every_layer(llama):
+    """A sliding window with no local/global period: the JAX package gives
+    every layer the window, and so must the port (24 tokens, window 8)."""
+    jcfg, cfg, jp, pp = llama
+    jcfg, cfg = (replace(c, sliding_window=8) for c in (jcfg, cfg))
+    assert all(ptf.layer_window(cfg, i) == 8 for i in range(cfg.n_layers))
+    _prefill_decode_and_greedy_tokens_match(jcfg, cfg, jp, pp)
+
+
+def _decode_matches_longer_prefill(cfg, pp):
     """The port's own invariant, as the JAX package's
     ``test_lm_decode_matches_prefill``: a decode step after prefill gives
     the logits of prefilling the prompt one token longer."""
-    _, cfg, _, pp = llama
     toks = torch.from_numpy(np.random.default_rng(5).integers(
         0, cfg.vocab, (2, 20)).astype(np.int32))
     cache, logits = ptf.prefill(cfg, pp, toks)
@@ -190,17 +277,37 @@ def test_llama3_decode_matches_prefill_of_the_longer_prompt(llama):
     np.testing.assert_allclose(step.numpy(), longer.numpy(), **MODEL_TOL)
 
 
-def test_unported_lm_features_raise():
-    cfg = get_arch("llama3-8b").smoke_config
-    gen = torch.Generator().manual_seed(0)
-    for change in (dict(n_experts=4), dict(sliding_window=8,
-                                           local_global_period=2),
-                   dict(attn_softcap=50.0), dict(post_norm=True),
-                   dict(act_model_axis="model")):
+def test_llama3_decode_matches_prefill_of_the_longer_prompt(llama):
+    _decode_matches_longer_prefill(llama[1], llama[3])
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "olmo-1b"])
+def test_lm_decode_matches_prefill_of_the_longer_prompt(arch):
+    """gemma2's window (8) and olmo's non-parametric norm; not the MoE
+    archs, whose capacity depends on the token count."""
+    _, cfg, _, pp = _lm(arch)
+    _decode_matches_longer_prefill(cfg, pp)
+
+
+@pytest.mark.parametrize("change", [
+    dict(act_batch_axes=("data",)), dict(act_model_axis="model"),
+    dict(moe_expert_axis="model"), dict(moe_batch_axes=("data",)),
+    dict(attn_seq_parallel=True), "seq_parallel_attention",
+    "moe_ffn_sharded"])
+def test_unported_lm_features_raise(change):
+    """Only the mesh fields (and the functions that need a mesh) wait."""
+    if change == "seq_parallel_attention":
         with pytest.raises(NotImplementedError):
-            ptf.init_params(replace(cfg, **change), gen)
-    with pytest.raises(NotImplementedError):
-        pa.seq_parallel_attention()
+            pa.seq_parallel_attention()
+        return
+    if change == "moe_ffn_sharded":
+        with pytest.raises(NotImplementedError):
+            pm.moe_ffn_sharded()
+        return
+    cfg = get_arch("phi3.5-moe-42b-a6.6b").smoke_config
+    with pytest.raises(NotImplementedError, match="mesh fields"):
+        ptf.init_params(replace(cfg, **change),
+                        torch.Generator().manual_seed(0))
 
 
 # ------------------------------------------------------------------ recsys
@@ -272,16 +379,22 @@ def test_embedding_bag_modes_match_reference():
 
 # --------------------------------------------------------- registry, glue
 def test_registry_holds_the_ported_archs_only():
-    assert sorted(ARCHS) == ["llama3-8b", "two-tower-retrieval", "xdeepfm"]
-    for arch in ("gemma2-9b", "sasrec", "mind", "meshgraphnet"):
+    assert sorted(ARCHS) == sorted(LM_ARCHS + ("two-tower-retrieval",
+                                               "xdeepfm"))
+    for arch in ("sasrec", "mind", "meshgraphnet"):
         with pytest.raises(NotImplementedError):
             get_arch(arch)
     with pytest.raises(ValueError):
         get_arch("dynawarp")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
-    full, ref = get_arch("llama3-8b").config, ref_get_arch("llama3-8b").config
-    assert full.param_count() == ref.param_count()
+    for arch in LM_ARCHS:
+        full, ref = get_arch(arch).config, ref_get_arch(arch).config
+        assert vars(full) == vars(ref), arch
+        assert full.param_count() == ref.param_count(), arch
+        assert full.active_param_count() == ref.active_param_count(), arch
+        assert vars(get_arch(arch).smoke_config) == \
+            vars(ref_get_arch(arch).smoke_config), arch
     assert get_arch("xdeepfm").config.param_count() == \
         ref_get_arch("xdeepfm").config.param_count()
     assert get_arch("two-tower-retrieval").config.param_count() == \
@@ -325,6 +438,36 @@ def test_converter_carries_bfloat16_exactly():
                              "cpu")
 
 
+@pytest.mark.parametrize("arch,path,fault", [
+    ("gemma2-9b", "layers/ln_attn_post", "missing"),
+    ("gemma2-9b", "layers/ln_ffn_post", "shape"),
+    ("phi3.5-moe-42b-a6.6b", "layers/moe", "missing"),
+    ("phi3.5-moe-42b-a6.6b", "layers/moe/router", "shape"),
+    ("phi3.5-moe-42b-a6.6b", "layers/moe/w_down", "missing"),
+    ("arctic-480b", "layers/moe/w_gate", "shape"),
+    ("arctic-480b", "layers/dense", "missing"),
+    ("arctic-480b", "layers/dense/w_up", "shape")])
+def test_converter_rejects_missing_or_misshapen_keys(arch, path, fault):
+    """The post-norms, ``moe`` and ``dense`` are checked key by key and
+    shape by shape, as the rest of an LM's tree is; the intact tree
+    converts."""
+    tree = jax.tree.map(np.asarray, ref_family_init(
+        ref_get_arch(arch), smoke=True)(jax.random.PRNGKey(0)))
+    cfg = get_arch(arch).smoke_config
+    lm_params_from_numpy(cfg, tree, "cpu")
+    *parents, leaf = path.split("/")
+    node = tree
+    for key in parents:
+        node = node[key]
+    if fault == "missing":
+        del node[leaf]
+    else:
+        node[leaf] = node[leaf][..., :-1]
+    with pytest.raises(ValueError, match=leaf if fault == "shape"
+                       else "missing"):
+        lm_params_from_numpy(cfg, tree, "cpu")
+
+
 def test_default_device_without_gpu_raises(monkeypatch):
     from repro_torch.device import generator
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -334,8 +477,12 @@ def test_default_device_without_gpu_raises(monkeypatch):
         port_serve.main(["--arch", "xdeepfm"])
 
 
-@pytest.mark.parametrize("arch,want", [("llama3-8b", "generated (4, 16)"),
-                                       ("two-tower-retrieval", "8 requests")])
+@pytest.mark.parametrize("arch,want", [
+    ("llama3-8b", "generated (4, 16)"), ("two-tower-retrieval", "8 requests"),
+    ("gemma2-9b", "gemma2-smoke on cpu: generated (4, 16)"),
+    ("olmo-1b", "olmo-smoke on cpu: generated (4, 16)"),
+    ("phi3.5-moe-42b-a6.6b", "phi35-smoke on cpu: generated (4, 16)"),
+    ("arctic-480b", "arctic-smoke on cpu: generated (4, 16)")])
 def test_serve_runs_on_cpu_at_smoke_size(arch, want, capsys):
     assert port_serve.main(["--arch", arch, "--device", "cpu"]) == 0
     assert want in capsys.readouterr().out

@@ -159,7 +159,11 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.examples.tail_ingest, "
             "repro_torch.core.serving, repro_torch.configs.dynawarp, "
             "repro_torch.core.distributed, "
-            "repro_torch.examples.distributed_query; "
+            "repro_torch.examples.distributed_query, "
+            "repro_torch.models.moe, repro_torch.configs.gemma2_9b, "
+            "repro_torch.configs.olmo_1b, repro_torch.configs.phi35_moe, "
+            "repro_torch.configs.arctic_480b, "
+            "repro_torch.examples.serve_lm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
