@@ -74,9 +74,10 @@ Phases (any failure raises, so the exit code is not 0):
      after ``finish()`` the whole prefix equal to phase 4's matches; and
      ``launch/serve.py --arch dynawarp --store`` on phase 4b's directory
      with the measured model;
-  4d. sharded retrieval on phase 4's lines and queries: a durable
+  4d. sharded retrieval on the first 500,000 of phase 4's lines and its
+     queries: a durable
      ``DynaWarpStore(shard_axes=("data",), path=..., fsync=True)`` spilling
-     at 4 MiB into at least 16 segments (its writer merges none; a plane
+     at 4 MiB into at least 8 segments (its writer merges none; a plane
      budget of 256 MiB, so that compacted segments keep theirs), its own
      engine a ``ShardedQueryEngine`` with one shard per card; beside it the
      unsharded engine and 8 and 4 logical shards of the card
@@ -146,7 +147,20 @@ Phases (any failure raises, so the exit code is not 0):
      requests of 512 rows, the wide term through ``embedding_bag``), each
      held to its plain version on the card; xDeepFM's candidate scoring at
      smoke size, held to its CPU run;
- 10. print the ``kernels`` JSON line (launch counts of each path, the
+ 10. SASRec and MIND at full width (1M items; d 50, 2 blocks and d 64, 4
+     interests, 3 routing iterations; L 50): ``serve_p99`` (32 requests of
+     512 left-padded sequences, 1024 candidates each) and
+     ``retrieval_cand`` (32 users against 1,048,576 candidates, top-100);
+     then MeshGraphNet's forward pass (15 layers, d 128): ``minibatch_lg``
+     from ``neighbor_sample`` (1024 seeds, fanout 15-10) over a synthetic
+     CSR graph at Reddit's size (232,965 nodes, ~114.6M edges), padded to
+     169,984 nodes and 168,960 edges, ``full_graph_sm`` and ``molecule``;
+     one model at a time, each held to its own float64 run on the card
+     within ``F64_TOL`` std, each rejecting its planted faults (SASRec's
+     causal or padding mask dropped, MIND's validity mask dropped,
+     MeshGraphNet's ``edge_mask`` ignored or last layer skipped) by
+     ``FAULT_MARGIN`` x that limit; none launches a kernel;
+ 11. print the ``kernels`` JSON line (launch counts of each path, the
      error against the plain versions, times and bounds, and the launch
      floor: one empty launch timed as every kernel is), then the result.
 
@@ -194,15 +208,18 @@ LOAD_PRESENT, LOAD_ABSENT = 256, 256
 N_SERVE_PRESENT, N_SERVE_ABSENT, N_SERVE_NEEDLES = 4, 12, 4
 LIVE_LINES, LIVE_MEMORY, LIVE_CHUNK = 100_000, 4 << 20, 10_000
 LIVE_PRESENT, LIVE_ABSENT = 2, 6
-# phase 4d: the sharded store's spill limit (its writer merges no
-# temporaries, so that the 1M lines stay about 20 segments) and plane budget
-# (a compacted segment of all 1M lines holds ~100 MB of planes: past the
-# default 64 MiB it would be probed on the host, outside every shard), the
-# logical
-# shard counts held beside the store's own (8: the JAX package's forced host
-# mesh; 4: the four-chip layout), the warm waves timed a kind and count, the
-# logical shards of its compaction and reopen, and its StoreServer sample
-SHARD_MEMORY, SHARD_PLANES, MIN_SHARD_SEGMENTS = 4 << 20, 256 << 20, 16
+# phase 4d: the prefix of phase 4's lines it ingests (cut from all 1M for
+# the script's time: about 10 segments, still one or more for each of its 8
+# logical shards), the sharded store's spill limit (its writer merges no
+# temporaries, so that 1M lines would stay about 20 segments) and plane
+# budget (a compacted segment of 1M lines holds ~100 MB of planes: past
+# the default 64 MiB it would be probed on the host, outside every shard),
+# the logical shard counts held beside the store's own (8: the JAX
+# package's forced host mesh; 4: the four-chip layout), the warm waves
+# timed a kind and count, the logical shards of its compaction and reopen,
+# and its StoreServer sample
+SHARD_LINES = 500_000
+SHARD_MEMORY, SHARD_PLANES, MIN_SHARD_SEGMENTS = 4 << 20, 256 << 20, 8
 SHARD_COUNTS, SHARD_REPS, SHARD_FORCED = (8, 4), 31, 4
 N_SHARD_PRESENT, N_SHARD_ABSENT, N_SHARD_NEEDLES = 2, 6, 2
 N_SCAN_SAMPLE = 8
@@ -287,6 +304,23 @@ WINDOW_DECODE_SHAPES = (
     (4, 1037, 32, 8, 128, 1000, 1, 50.0, "bfloat16"),
     (4, 4096, 32, 8, 128, 4000, 1500, 50.0, "float32"))
 CSC_WAVE = 1 << 17   # phase 5 edges: past the largest lane-group call
+# phase 10: SASRec and MIND (serve_p99, retrieval_cand) and MeshGraphNet's
+# forward pass at their full configs.  Each f32 output is held to the same
+# function in float64 on the card (parameters and inputs cast), the
+# difference in units of the f64 output's std: f32 rounding through 2
+# attention blocks, 3 routing iterations or 15 message-passing layers stays
+# orders below it, and every planted fault must read past FAULT_MARGIN
+# times it
+F64_TOL = 1e-4
+FAULT_MARGIN = 10
+SEQ_REQUESTS, GNN_RUNS = 32, 10
+TOP_KERNELS = 3                      # device kernels printed per profile
+# minibatch_lg's graph: Reddit's published size (GraphSAGE), its degrees
+# geometric around the mean, 1024 seed nodes, fanout 15-10
+REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892
+GNN_SEEDS, GNN_FANOUTS = 1024, (15, 10)
+CORA_EDGES = 10_556                  # full_graph_sm's real edges
+MOLECULES, MOLECULE_NODES, MOLECULE_EDGES = 128, 30, 64
 
 
 def require(cond: bool, what: str) -> None:
@@ -400,11 +434,13 @@ def print_registers(name: str, log: str) -> None:
             print(f"ptxas {name}: {line.strip()}", flush=True)
 
 
-def device_busy(torch, fn, trace=None) -> tuple[float, float | None]:
+def device_busy(torch, fn, trace=None, top=None
+                ) -> tuple[float, float | None]:
     """(wall ms, device busy ms) of one ``fn()`` call under torch.profiler:
     busy is the sum of the kernels' and copies' device time (None when the
     profiler saw no device activity).  A ``trace`` list receives the names
-    of the device's kernels and copies in the order they ran.  The
+    of the device's kernels and copies in the order they ran, a ``top``
+    list their (name, device ms) summed by name, the longest first.  The
     profiler records device activity only: nothing reads the host's ops,
     and recording them makes a call of many thousand launches (a long
     prefill) take longer than the call."""
@@ -416,8 +452,11 @@ def device_busy(torch, fn, trace=None) -> tuple[float, float | None]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     cuda = torch.autograd.DeviceType.CUDA
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == cuda)
+    by_name = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(e.self_device_time_total for e in by_name)
+    if top is not None:
+        top.extend(sorted(((e.key, e.self_device_time_total / 1e3)
+                           for e in by_name), key=lambda x: -x[1]))
     if trace is not None:
         trace.extend(e.name for e in sorted(
             (e for e in prof.events() if e.device_type == cuda),
@@ -1339,6 +1378,18 @@ def _leaves(tree):
         yield tree
 
 
+def request_ms(torch, fn, batches) -> tuple[list, object]:
+    """Each ``fn(batch)`` timed on the host's clock to its synchronised end
+    (ms), and the last result."""
+    ms = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        res = fn(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, res
+
+
 # ---------------------------------------------------------------- phase 9
 def recsys_path(torch, np, dev, counters, two_tower_cfg=None,
                 xdeepfm_cfg=None) -> dict:
@@ -1359,15 +1410,7 @@ def recsys_path(torch, np, dev, counters, two_tower_cfg=None,
 
     rng = np.random.default_rng(SEED)
     out = {}
-
-    def timed(fn, batches):
-        ms = []
-        for batch in batches:
-            t0 = time.perf_counter()
-            res = fn(batch)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        return ms, res
+    timed = functools.partial(request_ms, torch)
 
     # ------------------------------------------------------- two-tower
     spec = get_arch("two-tower-retrieval")
@@ -1504,6 +1547,320 @@ def recsys_path(torch, np, dev, counters, two_tower_cfg=None,
             "xDeepFM candidate scoring on the card differs from its CPU run")
     print(f"xdeepfm retrieval at smoke size: {cand.numel()} candidates equal "
           f"to the CPU run", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------- phase 10
+def cast_tree(tree, fn):
+    """``tree`` (dicts and lists of tensors) with ``fn`` applied to each
+    floating tensor."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [cast_tree(v, fn) for v in tree]
+    return fn(tree) if tree.is_floating_point() else tree
+
+
+def per_std(got, want) -> float:
+    """max |got - want| in units of ``want``'s std (NaN anywhere reads
+    inf)."""
+    diff = float((got.double() - want).abs().max())
+    return diff / float(want.std()) if diff == diff else float("inf")
+
+
+def hold_f64(torch, what, run, faults) -> dict:
+    """Hold ``run()`` (f32, on the card) to ``run(f64=True)`` within
+    F64_TOL std, and require each planted fault (name -> a callable that
+    runs the faulty f32 model) to read past FAULT_MARGIN x F64_TOL."""
+    want = run(f64=True)
+    got = run()
+    require(bool(torch.isfinite(got).all()) and got.shape == want.shape,
+            f"{what}: not finite or of the wrong shape")
+    err = per_std(got, want)
+    require(err <= F64_TOL, f"{what}: f32 differs from f64 by {err:.3g} std "
+            f"(limit {F64_TOL})")
+    readings = {name: per_std(fault(), want) for name, fault in faults.items()}
+    print(f"{what}: f32 against f64 {err:.3g} std (limit {F64_TOL})" + (
+        "; planted faults " + ", ".join(f"{n} {r:.4g} std"
+                                        for n, r in readings.items())
+        + f" (each required past {FAULT_MARGIN * F64_TOL:g})"
+        if readings else ""), flush=True)
+    for name, r in readings.items():
+        require(r > FAULT_MARGIN * F64_TOL,
+                f"{what}: the planted fault '{name}' reads {r:.3g} std, "
+                f"within {FAULT_MARGIN} x the limit")
+    return dict(f64_diff_per_std=err, faults_per_std=readings)
+
+
+def top_text(top) -> str:
+    """The longest TOP_KERNELS device kernels of a ``device_busy`` top."""
+    return "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in
+                     top[:TOP_KERNELS]) or "no kernels seen"
+
+
+def left_padded(np, rng, n_items, b, seq_len):
+    """(b, seq_len) int32 item ids left-padded (0) to lengths drawn over
+    1..seq_len."""
+    lens = rng.integers(1, seq_len + 1, b)
+    seq = rng.integers(1, n_items, (b, seq_len)).astype(np.int32)
+    seq[np.arange(seq_len)[None, :] < (seq_len - lens)[:, None]] = 0
+    return seq
+
+
+def seq_recsys_path(torch, np, dev, counters, sasrec_cfg=None,
+                    mind_cfg=None) -> dict:
+    """SASRec and MIND at full width, one after the other: serve_p99 (512
+    left-padded sequences, 1024 candidates each) and retrieval_cand (one
+    user against 1,048,576 candidates, top-100), each request timed to its
+    synchronised end, held to its float64 run, with the planted faults
+    (SASRec: causal mask dropped, padding mask dropped; MIND: validity mask
+    dropped).  Neither model reaches a kernel: the path must launch none."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch, mind, sasrec
+    from repro_torch.device import generator
+    from repro_torch.launch.steps import family_init, serve_fn
+    from repro_torch.models import recsys
+
+    rng = np.random.default_rng(SEED)
+    out = {}
+
+    def ids(a):
+        return torch.from_numpy(a).to(dev)
+
+    def swapped(name, fn, run):
+        """``run`` with ``recsys.<name>`` replaced by ``fn``."""
+        def go():
+            kept = getattr(recsys, name)
+            setattr(recsys, name, fn)
+            try:
+                return run()
+            finally:
+                setattr(recsys, name, kept)
+        return go
+
+    def no_pad(seq):
+        return torch.ones_like(seq, dtype=torch.bool)
+
+    def no_causal(l, device):
+        return torch.ones(l, l, dtype=torch.bool, device=device)
+
+    for k, (arch, cfg, n_cands) in enumerate((
+            ("sasrec", sasrec_cfg, sasrec.SERVE_CANDS),
+            ("mind", mind_cfg, mind.SERVE_CANDS))):
+        spec = get_arch(arch)
+        spec = replace(spec, config=cfg or spec.config)
+        cfg = spec.config
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = family_init(spec)(generator(SEED + 10 + k, dev))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        res = dict(items=cfg.n_items, dim=cfg.embed_dim, init_s=init_s)
+        n_cand = spec.shape("retrieval_cand").dims["n_candidates"]
+        b = spec.shape("serve_p99").dims["batch"]
+        serve = [{"seq": ids(left_padded(np, rng, cfg.n_items, b,
+                                         cfg.seq_len)),
+                  "cand": ids(rng.integers(1, cfg.n_items, (b, n_cands))
+                              .astype(np.int32))}
+                 for _ in range(SEQ_REQUESTS)]
+        corpus = ids(rng.integers(1, cfg.n_items, n_cand).astype(np.int32))
+        users = [{"seq": ids(left_padded(np, rng, cfg.n_items, 1,
+                                         cfg.seq_len)), "cand": corpus}
+                 for _ in range(SEQ_REQUESTS)]
+        for shape, batches, top in (("serve_p99", serve, False),
+                                    ("retrieval_cand", users, True)):
+            fn = serve_fn(spec, spec.shape(shape))
+
+            def request(batch, fn=fn, top=top):
+                scores = fn(params, batch)
+                return torch.topk(scores, TOP_K) if top else scores
+
+            with torch.inference_mode():
+                request(batches[0])                         # warm-up
+                torch.cuda.synchronize()
+                reset(counters)
+                ms, _ = request_ms(torch, request, batches)
+                launches = read(counters)
+                require(not any(launches.values()),
+                        f"{arch} {shape} launched a kernel: {launches}")
+                top = []
+                busy = device_busy(torch, lambda: request(batches[0]),
+                                   top=top)
+                p64 = cast_tree(params, lambda t: t.double())
+
+                def run(f64=False, fn=fn, batch=batches[0]):
+                    return fn(p64 if f64 else params, batch)
+
+                faults = {}
+                if shape == "serve_p99":
+                    faults["validity mask dropped" if arch == "mind"
+                           else "padding mask dropped"] = swapped(
+                        "_valid", no_pad, run)
+                    if arch == "sasrec":
+                        faults["causal mask dropped"] = swapped(
+                            "_causal", no_causal, run)
+                held = hold_f64(torch, f"{arch} {shape}", run, faults)
+                del p64
+            p50, p99 = percentiles(np, ms)
+            res[shape] = dict(requests=len(batches), ms_p50=p50, ms_p99=p99,
+                              profiled_ms=busy[0], busy_ms=busy[1],
+                              top_kernels=top[:TOP_KERNELS], **held)
+            print(f"{arch} {shape}: {len(batches)} requests, p50 {p50:.3f} "
+                  f"ms p99 {p99:.3f} ms; device busy per request "
+                  f"{busy_text(*busy)} ({top_text(top)}); launches none",
+                  flush=True)
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"{arch}: {cfg.n_items} x {cfg.embed_dim} items, init "
+              f"{init_s:.3f} s, peak {res['peak_gb']:.2f} GB", flush=True)
+        out[arch] = res
+        del params, serve, users, corpus
+        free(torch)
+    return out
+
+
+def reddit_like_csr(np, rng, n_nodes, n_edges):
+    """A CSR graph of ``n_nodes`` nodes and about ``n_edges`` edges: degrees
+    geometric around the mean (a few nodes below the fanouts),
+    ``indptr = cumsum(deg)``, neighbours drawn uniformly (int32)."""
+    deg = rng.geometric(n_nodes / n_edges, n_nodes)
+    indptr = np.zeros(n_nodes + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    return indptr, rng.integers(0, n_nodes, int(indptr[-1]), dtype=np.int32)
+
+
+def padded_graph(torch, np, gen, dev, snd, rcv, n_real, dims, d_edge_in):
+    """A padded graph on the card: features N(0, 1) drawn from ``gen`` for
+    the ``n_real`` nodes and ``len(snd)`` edges, zeros past them; padded
+    edges run from node 0 to node 0 and are masked, so that only the mask
+    keeps them out of node 0's sum."""
+    n, e = dims["n_nodes"], dims["n_edges"]
+    e_real = len(snd)
+    require(n_real <= n and e_real <= e,
+            f"a graph of {n_real} nodes, {e_real} edges past its shape's "
+            f"{n} / {e}")
+
+    def feats(rows, real, d):
+        x = torch.zeros(rows, d, device=dev)
+        x[:real] = torch.randn(real, d, generator=gen, device=dev)
+        return x
+
+    def index(a):
+        full = np.zeros(e, np.int32)
+        full[:e_real] = a
+        return torch.from_numpy(full).to(dev)
+
+    return {"nodes": feats(n, n_real, dims["d_feat"]),
+            "edges": feats(e, e_real, d_edge_in),
+            "senders": index(snd), "receivers": index(rcv),
+            "edge_mask": (torch.arange(e, device=dev) < e_real).float(),
+            "node_mask": (torch.arange(n, device=dev) < n_real).float()}
+
+
+def gnn_path(torch, np, dev, counters, cfg=None, shapes=None,
+             graph_size=(REDDIT_NODES, REDDIT_EDGES)) -> dict:
+    """MeshGraphNet's forward pass at its full config over three of its
+    shapes: minibatch_lg from ``neighbor_sample`` (1024 seeds, fanout 15-10)
+    over a synthetic CSR graph of ``graph_size``, padded to the shape;
+    full_graph_sm (uniform random edges); molecule (128 disjoint graphs).
+    Each timed over GNN_RUNS runs, held to its float64 run, with the planted
+    faults (``edge_mask`` ignored where edges are padded; the last processor
+    layer skipped).  It launches no kernel.  ``cfg``, ``shapes`` and
+    ``graph_size`` shrink it when rehearsing on the CPU."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import generator
+    from repro_torch.launch.steps import _gnn_cfg_for_shape, family_init
+    from repro_torch.models import gnn
+
+    spec = get_arch("meshgraphnet")
+    base, shapes = cfg or spec.config, shapes or spec.shapes
+    rng = np.random.default_rng(SEED)
+    gen = generator(SEED + 20, dev)
+    out = {}
+
+    t0 = time.perf_counter()
+    indptr, indices = reddit_like_csr(np, rng, *graph_size)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seeds = rng.choice(graph_size[0], GNN_SEEDS, replace=False)
+    nodes, snd, rcv = gnn.neighbor_sample(indptr, indices, seeds,
+                                          list(GNN_FANOUTS), rng)
+    sample_s = time.perf_counter() - t0
+    out["sampler"] = dict(graph_nodes=graph_size[0],
+                          graph_edges=int(indptr[-1]), build_s=build_s,
+                          sample_s=sample_s, nodes=len(nodes), edges=len(snd))
+    print(f"meshgraphnet sampler: CSR of {graph_size[0]} nodes, "
+          f"{int(indptr[-1])} edges built in {build_s:.2f} s; "
+          f"neighbor_sample of {GNN_SEEDS} seeds, fanout "
+          f"{'-'.join(map(str, GNN_FANOUTS))}: {len(nodes)} nodes, "
+          f"{len(snd)} edges in {sample_s:.2f} s (host)", flush=True)
+    del indptr, indices
+
+    n_sm = shapes["full_graph_sm"].dims["n_nodes"]
+    n_edges_sm = min(CORA_EDGES, shapes["full_graph_sm"].dims["n_edges"])
+    offs = np.repeat(np.arange(MOLECULES) * MOLECULE_NODES, MOLECULE_EDGES)
+    graphs = {
+        "minibatch_lg": (snd, rcv, len(nodes)),
+        "full_graph_sm": (rng.integers(0, n_sm, n_edges_sm),
+                          rng.integers(0, n_sm, n_edges_sm), n_sm),
+        "molecule": (offs + rng.integers(0, MOLECULE_NODES, offs.size),
+                     offs + rng.integers(0, MOLECULE_NODES, offs.size),
+                     MOLECULES * MOLECULE_NODES)}
+    for name, (s, r, n_real) in graphs.items():
+        shape = shapes[name]
+        cfg = _gnn_cfg_for_shape(base, shape)
+        torch.cuda.reset_peak_memory_stats()
+        params = family_init(spec, cfg_override=cfg)(gen)
+        graph = padded_graph(torch, np, gen, dev, s, r, n_real, shape.dims,
+                             cfg.d_edge_in)
+        with torch.inference_mode():
+            gnn.forward(cfg, params, graph)                 # warm-up
+            torch.cuda.synchronize()
+            reset(counters)
+            ms, res = request_ms(torch, lambda g: gnn.forward(cfg, params, g),
+                                 [graph] * GNN_RUNS)
+            launches = read(counters)
+            require(not any(launches.values()),
+                    f"meshgraphnet {name} launched a kernel: {launches}")
+            require(not bool(res[n_real:].any()),
+                    f"meshgraphnet {name}: padded nodes' output is not zero")
+            top = []
+            busy = device_busy(torch, lambda: gnn.forward(cfg, params, graph),
+                               top=top)
+            p64 = cast_tree(params, lambda t: t.double())
+            g64 = cast_tree(graph, lambda t: t.double())
+
+            def run(f64=False, cfg=cfg, params=params, graph=graph):
+                return gnn.forward(cfg, p64 if f64 else params,
+                                   g64 if f64 else graph)
+
+            shallow = dict(params, **{k: {w: t[:-1] for w, t in
+                                          params[k].items()}
+                                      for k in ("edge_mlp", "node_mlp")})
+            faults = {"last layer skipped": lambda: gnn.forward(
+                replace(cfg, n_layers=cfg.n_layers - 1), shallow, graph)}
+            if len(s) < shape.dims["n_edges"]:
+                faults["edge_mask ignored"] = lambda: gnn.forward(
+                    cfg, params, dict(graph, edge_mask=torch.ones_like(
+                        graph["edge_mask"])))
+            held = hold_f64(torch, f"meshgraphnet {name}", run, faults)
+            del p64, g64
+        p50, p99 = percentiles(np, ms)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[name] = dict(nodes=n_real, edges=len(s), **shape.dims,
+                         runs=GNN_RUNS, ms_p50=p50, ms_p99=p99, peak_gb=peak,
+                         profiled_ms=busy[0], busy_ms=busy[1],
+                         top_kernels=top[:TOP_KERNELS], **held)
+        print(f"meshgraphnet {name}: {n_real} of {shape.dims['n_nodes']} "
+              f"nodes, {len(s)} of {shape.dims['n_edges']} edges, d_feat "
+              f"{shape.dims['d_feat']}, {cfg.n_layers} layers: forward p50 "
+              f"{p50:.3f} ms p99 {p99:.3f} ms over {GNN_RUNS} runs, peak "
+              f"{peak:.2f} GB; device busy per forward {busy_text(*busy)} "
+              f"({top_text(top)}); launches none", flush=True)
+        del params, graph
+        free(torch)
     return out
 
 
@@ -2520,7 +2877,8 @@ def least_loaded(prior, n_shards) -> list[int]:
 
 
 def sharded_path(torch, np, dev, counters, seg, tmp) -> dict:
-    """Phase 4's lines and queries through a sharded durable store
+    """The first SHARD_LINES of phase 4's lines, and its queries, through a
+    sharded durable store
     (``shard_axes=("data",)``: one shard per card) and through 4 and 8
     logical shards of the card (``ShardedQueryEngine(devices=[dev] * N)``),
     each wave held to the unsharded engine and its host path, with its
@@ -2542,7 +2900,8 @@ def sharded_path(torch, np, dev, counters, seg, tmp) -> dict:
                                                       mphf_probe_arrs)
     from repro_torch.logstore.store import DynaWarpStore
 
-    lines, terms, needle_toks = seg["ds"].lines, seg["terms"], seg["needle_toks"]
+    lines, terms = seg["ds"].lines[:SHARD_LINES], seg["terms"]
+    needle_toks = seg["needle_toks"]
     kinds = {"term": ([term_query_tokens(t) for t in terms], "and"),
              "contains_and": (needle_toks, "and"),
              "contains_or": (needle_toks, "or")}
@@ -2596,9 +2955,11 @@ def sharded_path(torch, np, dev, counters, seg, tmp) -> dict:
                         f"path")
 
     def scan_sample(store, what):
+        """The scan store's matches of phase 4's sample, over the prefix."""
         sample = list(seg["truth"])
         for t, r in zip(sample, store.query_term_batch(sample)):
-            require(r.matches == seg["truth"][t],
+            require(r.matches == [m for m in seg["truth"][t]
+                                  if m < len(lines)],
                     f"{what}: the scan oracle differs on {t!r}")
 
     reset(counters)
@@ -3284,6 +3645,9 @@ def main() -> int:
     timed("phase 8")
     rec = recsys_path(torch, np, dev, counters)
     timed("phase 9")
+    archs = seq_recsys_path(torch, np, dev, counters)
+    archs["meshgraphnet"] = gnn_path(torch, np, dev, counters)
+    timed("phase 10")
     paths["two_tower"] = rec["two_tower"].pop("launches")
     paths["xdeepfm"] = rec["xdeepfm"].pop("launches")
     for path, name in ([(f"lm {arch}", "flash_decode") for arch in lm]
@@ -3335,7 +3699,7 @@ def main() -> int:
                           serve=served["summary"],
                           sharded=sharded["summary"],
                           csc=csc, log_search=hunt["stores"], lm=lm,
-                          recsys=rec)))
+                          recsys=rec, archs=archs)))
     print(json.dumps({"kernels": rows, "launch_floor_ms": floor_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

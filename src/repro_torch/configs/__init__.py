@@ -1,10 +1,9 @@
 """Architecture registry: ``get_arch(id)`` / ``ARCHS`` back --arch flags.
 
-Only the ported architectures are registered; the JAX package's other ids
-raise "not yet ported".  The paper's own config (dynawarp/copr) is
-``DYNAWARP_CONFIG``, not an arch."""
-from . import (arctic_480b, gemma2_9b, llama3_8b, olmo_1b, phi35_moe,
-               two_tower, xdeepfm)
+The ten architectures of the JAX package.  The paper's own config
+(dynawarp/copr) is ``DYNAWARP_CONFIG``, not an arch."""
+from . import (arctic_480b, gemma2_9b, llama3_8b, meshgraphnet, mind,
+               olmo_1b, phi35_moe, sasrec, two_tower, xdeepfm)
 from .base import ArchSpec, ShapeSpec
 from .dynawarp import CONFIG as DYNAWARP_CONFIG
 from .dynawarp import SMOKE as DYNAWARP_SMOKE
@@ -13,9 +12,8 @@ from .dynawarp import DynaWarpConfig
 ARCHS: dict[str, ArchSpec] = {
     spec.id: spec for spec in (
         gemma2_9b.SPEC, olmo_1b.SPEC, llama3_8b.SPEC, phi35_moe.SPEC,
-        arctic_480b.SPEC, xdeepfm.SPEC, two_tower.SPEC)}
-
-NOT_YET_PORTED = ("meshgraphnet", "sasrec", "mind")
+        arctic_480b.SPEC, meshgraphnet.SPEC, xdeepfm.SPEC, sasrec.SPEC,
+        mind.SPEC, two_tower.SPEC)}
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -24,8 +22,6 @@ def get_arch(arch_id: str) -> ArchSpec:
             "dynawarp/copr is the paper's log-store config, not a model "
             "arch; use repro_torch.configs.DYNAWARP_CONFIG / the logstore "
             "API")
-    if arch_id in NOT_YET_PORTED:
-        raise NotImplementedError(f"arch {arch_id!r} is not yet ported")
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]

@@ -39,6 +39,10 @@ class ArchSpec:
         return self.shapes[name]
 
 
+def pad_to(n: int, mult: int) -> int:
+    return -(-n // mult) * mult
+
+
 LM_SHAPES = dict(
     train_4k=dict(seq=4096, batch=256),
     prefill_32k=dict(seq=32768, batch=32),

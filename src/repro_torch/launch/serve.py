@@ -13,8 +13,11 @@ arctic-480b): prefill a batch of prompts, then greedy-decode N tokens with
 the KV cache (``flash_decode`` on the card, with gemma2's sliding window
 and soft-cap).  ``--full`` on one 80 GB card fits llama3-8b (17 GB of
 bf16 weights), gemma2-9b (18.5 GB) and olmo-1b (2.4 GB); phi3.5-moe (84 GB)
-and arctic-480b (~960 GB) do not.  RecSys archs: a batched scoring
-loop (the ``serve_p99`` kind) with latency stats.  Runs the reduced smoke
+and arctic-480b (~960 GB) do not.  RecSys archs (xdeepfm,
+two-tower-retrieval, sasrec, mind): a batched scoring loop (the
+``serve_p99`` kind) with latency stats; SASRec and MIND score 32
+candidates a request.  meshgraphnet has no serve shape and is refused, as
+in the JAX package.  Runs the reduced smoke
 config unless ``--full`` (the published config), on the GPU unless
 ``--device cpu``.  Weights are random, drawn from a seeded generator.
 """
@@ -150,6 +153,9 @@ def main(argv=None) -> int:
     from .steps import family_init, serve_fn
 
     spec = get_arch(args.arch)
+    if spec.family != "lm" and "serve_p99" not in spec.shapes:
+        raise ValueError(f"{spec.id} has no serve shape ('serve_p99'); its "
+                         f"shapes are {sorted(spec.shapes)}")
     dev = resolve_device(args.device)
     cfg = spec.config if args.full else spec.smoke_config
     params = family_init(spec, cfg_override=cfg)(generator(0, dev))
@@ -190,6 +196,11 @@ def main(argv=None) -> int:
     with torch.inference_mode():
         for r in range(args.requests):
             batch = spec.smoke_batch(cfg, np.random.default_rng(r), dev)
+            if spec.id in ("sasrec", "mind"):     # 32 candidates a request
+                b = batch["seq"].shape[0]
+                batch["cand"] = torch.from_numpy(np.random.default_rng(
+                    r).integers(1, cfg.n_items, (b, 32)).astype(np.int32)
+                ).to(dev)
             t0 = time.perf_counter()
             scores = fn(params, batch)
             sync()

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .recsys import TwoTowerConfig, XDeepFMConfig
+from .gnn import GNNConfig, _mlp_sizes
+from .recsys import MINDConfig, SASRecConfig, TwoTowerConfig, XDeepFMConfig
 from .transformer import LMConfig, check_supported
 
 
@@ -43,10 +44,12 @@ def _take(tree: dict, keys, shapes: dict, device, where: str) -> dict:
     return out
 
 
-def _mlp(tree: dict, sizes, device, where: str) -> dict:
+def _mlp(tree: dict, sizes, device, where: str, lead=()) -> dict:
+    """An MLP's ``w{i}`` / ``b{i}``, each with the leading axes ``lead``
+    (``(n_layers,)`` for a stacked one)."""
     n = len(sizes) - 1
-    shapes = {f"w{i}": (sizes[i], sizes[i + 1]) for i in range(n)}
-    shapes.update({f"b{i}": (sizes[i + 1],) for i in range(n)})
+    shapes = {f"w{i}": (*lead, sizes[i], sizes[i + 1]) for i in range(n)}
+    shapes.update({f"b{i}": (*lead, sizes[i + 1]) for i in range(n)})
     return _take(tree, list(shapes), shapes, device, where)
 
 
@@ -133,3 +136,51 @@ def xdeepfm_params_from_numpy(cfg: XDeepFMConfig, tree: dict,
     params["dnn"] = _mlp(tree["dnn"], [m * d] + list(cfg.mlp_sizes) + [1],
                          dev, "dnn")
     return params
+
+
+def sasrec_params_from_numpy(cfg: SASRecConfig, tree: dict,
+                             device=None) -> dict:
+    dev = resolve_device(device)
+    d = cfg.embed_dim
+    top = {k: v for k, v in tree.items() if k != "blocks"}
+    params = _take(top, ["item_emb", "pos_emb", "ln_f"],
+                   {"item_emb": (cfg.n_items, d), "pos_emb": (cfg.seq_len, d),
+                    "ln_f": (d,)}, dev, "params")
+    blocks = tree.get("blocks", [])
+    if len(blocks) != cfg.n_blocks:
+        raise ValueError(f"blocks: {len(blocks)}, expected {cfg.n_blocks}")
+    shapes = {k: (d, d) for k in ("wq", "wk", "wv", "wo", "ffn_w1",
+                                  "ffn_w2")}
+    shapes.update({k: (d,) for k in ("ffn_b1", "ffn_b2", "ln1", "ln2")})
+    params["blocks"] = [_take(b, list(shapes), shapes, dev, f"blocks[{i}]")
+                        for i, b in enumerate(blocks)]
+    return params
+
+
+def mind_params_from_numpy(cfg: MINDConfig, tree: dict, device=None) -> dict:
+    dev = resolve_device(device)
+    d = cfg.embed_dim
+    top = {k: v for k, v in tree.items() if k != "dnn"}
+    params = _take(top, ["item_emb", "S", "b_init"],
+                   {"item_emb": (cfg.n_items, d), "S": (d, d),
+                    "b_init": (cfg.n_interests, cfg.seq_len)}, dev, "params")
+    params["dnn"] = _mlp(tree.get("dnn", {}), [d, d, d], dev, "dnn")
+    return params
+
+
+def gnn_params_from_numpy(cfg: GNNConfig, tree: dict, device=None) -> dict:
+    """MeshGraphNet's tree: the encoders and the decoder, and the stacked
+    processor MLPs ``edge_mlp`` / ``node_mlp`` (leading ``n_layers``)."""
+    dev = resolve_device(device)
+    h = cfg.d_hidden
+    mlps = {"node_enc": (cfg.d_node_in, h, ()),
+            "edge_enc": (cfg.d_edge_in, h, ()),
+            "edge_mlp": (3 * h, h, (cfg.n_layers,)),
+            "node_mlp": (2 * h, h, (cfg.n_layers,)),
+            "decoder": (h, cfg.d_out, ())}
+    extra = set(tree) - set(mlps)
+    if extra:
+        raise ValueError(f"params: unexpected keys {sorted(extra)}")
+    return {name: _mlp(tree.get(name, {}), _mlp_sizes(cfg, d_in, d_out), dev,
+                       name, lead)
+            for name, (d_in, d_out, lead) in mlps.items()}

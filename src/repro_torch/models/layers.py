@@ -17,6 +17,12 @@ def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+def at_least_f32(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the JAX package computes norms in (f32), except that an
+    f64 input stays f64: the card's float64 runs check the f32 ones."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def normal(gen: torch.Generator, shape, scale: float = 1.0,
            dtype=torch.float32) -> torch.Tensor:
     """N(0, scale^2) drawn in f32 on the generator's device, then cast."""
@@ -39,18 +45,20 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32):
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor | None = None,
              eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in f32 with the ``(1 + weight)`` gain (weights start at
-    zero); ``weight=None`` is the non-parametric variant."""
-    x32 = x.to(torch.float32)
+    """RMSNorm in f32 (f64 stays f64) with the ``(1 + weight)`` gain
+    (weights start at zero); ``weight=None`` is the non-parametric
+    variant."""
+    x32 = x.to(at_least_f32(x.dtype))
     nrm = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
     if weight is not None:
-        nrm = nrm * (1.0 + weight.to(torch.float32))
+        nrm = nrm * (1.0 + weight.to(x32.dtype))
     return nrm.to(x.dtype)
 
 
 def layer_norm_nonparam(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Non-parametric LayerNorm (mean-centred, no gain or bias)."""
-    x32 = x.to(torch.float32)
+    """Non-parametric LayerNorm (mean-centred, no gain or bias), in f32
+    (f64 stays f64)."""
+    x32 = x.to(at_least_f32(x.dtype))
     mu = x32.mean(-1, keepdim=True)
     var = x32.var(-1, keepdim=True, unbiased=False)
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)

@@ -1,12 +1,15 @@
-"""RecSys model family, the serving paths of xDeepFM and two-tower retrieval.
+"""RecSys model family, the serving paths of xDeepFM, SASRec, MIND and
+two-tower retrieval.
 
 Tables are one concatenated (sum_vocab, D) matrix with per-field row
 offsets, as in the JAX package.  Two hand-written kernels carry the device
 work of these paths: xDeepFM's wide term is an ``embedding_bag_sum`` with
 D = 1, and two-tower retrieval scores the 1M-row corpus with
 ``retrieval_scores``; on CPU tensors both take their plain versions.  The
-CIN, the towers' MLPs and the field lookups stay plain torch.  SASRec, MIND
-and the training losses are not yet ported.
+CIN, the towers' MLPs, the field lookups, SASRec and MIND stay plain torch,
+as in the JAX package, where they reach no Pallas kernel (SASRec and MIND
+retrieval score with a plain product).  Item id 0 is padding.  The
+training losses are not yet ported.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ import torch
 
 from ..kernels.embedding_bag.ops import embedding_bag_sum
 from ..kernels.retrieval_score.ops import retrieval_scores
-from .layers import mlp_apply, mlp_init, normal, torch_dtype
+from .layers import (at_least_f32, mlp_apply, mlp_init, normal, rms_norm,
+                     torch_dtype)
 
 
 # ------------------------------------------------------------ embedding ops
@@ -34,6 +38,16 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *, mask=None,
                else torch.tensor(float(idx.shape[-1]), device=e.device))
         return e.sum(-2) / den.clamp_min(1.0)
     raise ValueError(mode)
+
+
+def embedding_bag_ragged(table: torch.Tensor, indices: torch.Tensor,
+                         segment_ids: torch.Tensor, n_bags: int
+                         ) -> torch.Tensor:
+    """Ragged bag sums: indices (nnz,), segment_ids (nnz,) sorted bag ids
+    -> (n_bags, D); an empty bag is zero."""
+    return torch.zeros(n_bags, table.shape[1], dtype=table.dtype,
+                       device=table.device).index_add_(
+        0, segment_ids.long(), table[indices.long()])
 
 
 def _field_offsets(vocab_sizes, device=None) -> torch.Tensor:
@@ -117,6 +131,161 @@ def xdeepfm_retrieval(cfg: XDeepFMConfig, params: dict, batch: dict
     idx = batch["idx"].expand(cand.shape[0], cfg.n_sparse).clone()
     idx[:, 0] = cand
     return xdeepfm_logits(cfg, params, idx)
+
+
+# ------------------------------------------------------------------ SASRec
+@dataclass(frozen=True)
+class SASRecConfig:
+    name: str = "sasrec"
+    n_items: int = 1_000_000
+    embed_dim: int = 50
+    n_blocks: int = 2
+    n_heads: int = 1
+    seq_len: int = 50
+    dtype: str = "float32"
+
+    def param_count(self) -> int:
+        d = self.embed_dim
+        per_block = 4 * d * d + 2 * (d * d + d) + 2 * d
+        return (self.n_items + self.seq_len) * d \
+            + self.n_blocks * per_block + d
+
+
+def sasrec_init(cfg: SASRecConfig, gen: torch.Generator) -> dict:
+    dt, dev = torch_dtype(cfg.dtype), gen.device
+    d = cfg.embed_dim
+
+    def zeros():
+        return torch.zeros(d, dtype=dt, device=dev)
+
+    def w():
+        return normal(gen, (d, d), d ** -0.5, dt)
+
+    blocks = [{"wq": w(), "wk": w(), "wv": w(), "wo": w(),
+               "ffn_w1": w(), "ffn_b1": zeros(), "ffn_w2": w(),
+               "ffn_b2": zeros(), "ln1": zeros(), "ln2": zeros()}
+              for _ in range(cfg.n_blocks)]
+    return {"item_emb": normal(gen, (cfg.n_items, d), 20 ** -0.5, dt),
+            "pos_emb": normal(gen, (cfg.seq_len, d), 20 ** -0.5, dt),
+            "ln_f": zeros(), "blocks": blocks}
+
+
+def _valid(seq: torch.Tensor) -> torch.Tensor:
+    """(B, L) True where a position holds an item (id 0 is padding)."""
+    return seq != 0
+
+
+def _causal(l: int, device) -> torch.Tensor:
+    """(L, L) True where a query position may see a key position."""
+    return torch.ones(l, l, dtype=torch.bool, device=device).tril()
+
+
+def sasrec_encode(cfg: SASRecConfig, params: dict, seq: torch.Tensor
+                  ) -> torch.Tensor:
+    """seq (B, L) item ids -> (B, L, D) causal states, zero at padding.
+    Masked scores are -1e30, not -inf: a query position whose keys are all
+    padding gets a uniform softmax over all L keys, as in the JAX
+    package."""
+    b, l = seq.shape
+    d = cfg.embed_dim
+    x = params["item_emb"][seq] * (d ** 0.5) + params["pos_emb"][None, :l]
+    valid = _valid(seq)
+    mask = _causal(l, seq.device)[None] & valid[:, None, :]
+    for blk in params["blocks"]:
+        h = rms_norm(x, blk["ln1"])
+        q, k, v = ((h @ blk[w]).reshape(b, l, cfg.n_heads, -1)
+                   for w in ("wq", "wk", "wv"))
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) / (q.shape[-1] ** 0.5)
+        s = s.masked_fill(~mask[:, None], -1e30)
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+        x = x + o.reshape(b, l, d) @ blk["wo"]
+        h2 = rms_norm(x, blk["ln2"])
+        x = x + torch.relu(h2 @ blk["ffn_w1"] + blk["ffn_b1"]) \
+            @ blk["ffn_w2"] + blk["ffn_b2"]
+    return rms_norm(x, params["ln_f"]) * valid[..., None].to(x.dtype)
+
+
+def sasrec_serve(cfg: SASRecConfig, params: dict, batch: dict
+                 ) -> torch.Tensor:
+    """Score each request's candidates: seq (B, L), cand (B, C) -> (B, C)."""
+    h = sasrec_encode(cfg, params, batch["seq"])[:, -1]
+    ce = params["item_emb"][batch["cand"]]
+    return torch.einsum("bd,bcd->bc", h, ce)
+
+
+def sasrec_retrieval(cfg: SASRecConfig, params: dict, batch: dict
+                     ) -> torch.Tensor:
+    """One user, seq (1, L), against cand (C,) -> (C,) scores."""
+    h = sasrec_encode(cfg, params, batch["seq"])[:, -1]       # (1, D)
+    ce = params["item_emb"][batch["cand"]]                     # (C, D)
+    return (h @ ce.T)[0]
+
+
+# -------------------------------------------------------------------- MIND
+@dataclass(frozen=True)
+class MINDConfig:
+    name: str = "mind"
+    n_items: int = 1_000_000
+    embed_dim: int = 64
+    n_interests: int = 4
+    capsule_iters: int = 3
+    seq_len: int = 50
+    dtype: str = "float32"
+
+    def param_count(self) -> int:
+        d = self.embed_dim
+        return self.n_items * d + d * d + 2 * (d * d + d)
+
+
+def mind_init(cfg: MINDConfig, gen: torch.Generator) -> dict:
+    dt = torch_dtype(cfg.dtype)
+    d = cfg.embed_dim
+    return {
+        "item_emb": normal(gen, (cfg.n_items, d), 0.02, dt),
+        "S": normal(gen, (d, d), d ** -0.5, dt),      # shared bilinear map
+        "dnn": mlp_init(gen, [d, d, d]),               # f32 whatever dt is
+        # fixed (untrained) routing logits per (interest, position)
+        "b_init": normal(gen, (cfg.n_interests, cfg.seq_len), 1.0, dt),
+    }
+
+
+def _squash(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    x32 = x.to(at_least_f32(x.dtype))
+    n2 = x32.square().sum(dim, keepdim=True)
+    return (n2 / (1 + n2) * x32 / torch.sqrt(n2 + 1e-9)).to(x.dtype)
+
+
+def mind_interests(cfg: MINDConfig, params: dict, seq: torch.Tensor
+                   ) -> torch.Tensor:
+    """Behavior-to-interest dynamic routing: seq (B, L) with L = seq_len ->
+    (B, K, D).  The routing softmax is over interests; padded positions are
+    masked after it.  The interests are the last iteration's."""
+    e = params["item_emb"][seq]                                # (B, L, D)
+    eh = e @ params["S"]
+    valid = _valid(seq)
+    b_logit = params["b_init"][None].expand(seq.shape[0], cfg.n_interests,
+                                            cfg.seq_len)
+    for _ in range(cfg.capsule_iters):
+        w = torch.softmax(b_logit, 1) * valid[:, None, :].to(b_logit.dtype)
+        u = _squash(torch.einsum("bkl,bld->bkd", w, eh))
+        b_logit = b_logit + torch.einsum("bkd,bld->bkl", u, eh)
+    dnn = params["dnn"]
+    return mlp_apply(dnn, u.to(torch.promote_types(u.dtype, dnn["w0"].dtype))
+                     ) + u                                     # H-layer + skip
+
+
+def mind_serve(cfg: MINDConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Max-over-interests scores of each request's candidates (B, C)."""
+    u = mind_interests(cfg, params, batch["seq"])
+    ce = params["item_emb"][batch["cand"]]                     # (B, C, D)
+    return torch.einsum("bkd,bcd->bkc", u, ce).amax(1)
+
+
+def mind_retrieval(cfg: MINDConfig, params: dict, batch: dict
+                   ) -> torch.Tensor:
+    u = mind_interests(cfg, params, batch["seq"])              # (1, K, D)
+    ce = params["item_emb"][batch["cand"]]                     # (C, D)
+    return (u[0] @ ce.T).amax(0)                               # (C,)
 
 
 # ---------------------------------------------------------------- twotower

@@ -2,7 +2,9 @@
 carried across by ``repro_torch.models.convert``: the shared layers,
 blockwise and decode attention, the MoE FFN, the smoke configs of the five
 LM archs (llama3, gemma2, olmo, phi3.5-moe, arctic) through prefill, decode
-and greedy generation, two-tower retrieval and xDeepFM scoring.  Inputs
+and greedy generation, two-tower retrieval and xDeepFM scoring; the
+registry of all ten archs, the converters and the serving glue (SASRec and
+MIND in ``test_torch_recsys.py``, MeshGraphNet in ``test_torch_gnn.py``).  Inputs
 are made with numpy from a seed and handed to both packages.
 
 Tolerances: float32 throughout, 2e-5 for single layers and 2e-4 for whole
@@ -16,13 +18,16 @@ import torch
 
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.launch import serve as port_serve
-from repro_torch.launch.steps import family_init, serve_fn
+from repro_torch.launch.steps import family_init, make_serve_step, serve_fn
 from repro_torch.models import attention as pa
 from repro_torch.models import layers as pl
 from repro_torch.models import moe as pm
 from repro_torch.models import recsys as prs
 from repro_torch.models import transformer as ptf
-from repro_torch.models.convert import (lm_params_from_numpy,
+from repro_torch.models.convert import (gnn_params_from_numpy,
+                                        lm_params_from_numpy,
+                                        mind_params_from_numpy,
+                                        sasrec_params_from_numpy,
                                         tensor_from_numpy,
                                         twotower_params_from_numpy,
                                         xdeepfm_params_from_numpy)
@@ -30,6 +35,7 @@ from repro_torch.models.convert import (lm_params_from_numpy,
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")
 
+from repro.configs import ARCHS as REF_ARCHS  # noqa: E402
 from repro.configs import get_arch as ref_get_arch  # noqa: E402
 from repro.launch.steps import family_init as ref_family_init  # noqa: E402
 from repro.models import attention as ja  # noqa: E402
@@ -379,26 +385,24 @@ def test_embedding_bag_modes_match_reference():
 
 # --------------------------------------------------------- registry, glue
 def test_registry_holds_the_ported_archs_only():
-    assert sorted(ARCHS) == sorted(LM_ARCHS + ("two-tower-retrieval",
-                                               "xdeepfm"))
-    for arch in ("sasrec", "mind", "meshgraphnet"):
-        with pytest.raises(NotImplementedError):
-            get_arch(arch)
+    """Every arch of the JAX package is ported: the same ids, and each
+    config (full and smoke) with the reference's fields and counts."""
+    assert sorted(ARCHS) == sorted(REF_ARCHS)
     with pytest.raises(ValueError):
         get_arch("dynawarp")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
-    for arch in LM_ARCHS:
-        full, ref = get_arch(arch).config, ref_get_arch(arch).config
-        assert vars(full) == vars(ref), arch
-        assert full.param_count() == ref.param_count(), arch
-        assert full.active_param_count() == ref.active_param_count(), arch
-        assert vars(get_arch(arch).smoke_config) == \
-            vars(ref_get_arch(arch).smoke_config), arch
-    assert get_arch("xdeepfm").config.param_count() == \
-        ref_get_arch("xdeepfm").config.param_count()
-    assert get_arch("two-tower-retrieval").config.param_count() == \
-        ref_get_arch("two-tower-retrieval").config.param_count()
+    for arch in REF_ARCHS:
+        for full, ref in ((get_arch(arch).config, ref_get_arch(arch).config),
+                          (get_arch(arch).smoke_config,
+                           ref_get_arch(arch).smoke_config)):
+            assert vars(full) == vars(ref), arch
+            assert full.param_count() == ref.param_count(), arch
+            if arch in LM_ARCHS:
+                assert full.active_param_count() == \
+                    ref.active_param_count(), arch
+        assert sorted(get_arch(arch).shapes) == \
+            sorted(ref_get_arch(arch).shapes), arch
 
 
 def test_port_init_has_the_reference_shapes():
@@ -438,6 +442,11 @@ def test_converter_carries_bfloat16_exactly():
                              "cpu")
 
 
+CONVERTERS = {"sasrec": sasrec_params_from_numpy,
+              "mind": mind_params_from_numpy,
+              "meshgraphnet": gnn_params_from_numpy}
+
+
 @pytest.mark.parametrize("arch,path,fault", [
     ("gemma2-9b", "layers/ln_attn_post", "missing"),
     ("gemma2-9b", "layers/ln_ffn_post", "shape"),
@@ -446,26 +455,38 @@ def test_converter_carries_bfloat16_exactly():
     ("phi3.5-moe-42b-a6.6b", "layers/moe/w_down", "missing"),
     ("arctic-480b", "layers/moe/w_gate", "shape"),
     ("arctic-480b", "layers/dense", "missing"),
-    ("arctic-480b", "layers/dense/w_up", "shape")])
+    ("arctic-480b", "layers/dense/w_up", "shape"),
+    ("sasrec", "pos_emb", "missing"),
+    ("sasrec", "blocks/1/ffn_w2", "shape"),
+    ("sasrec", "blocks/0/ln1", "missing"),
+    ("mind", "b_init", "shape"),
+    ("mind", "dnn/b1", "missing"),
+    ("mind", "S", "missing"),
+    ("meshgraphnet", "edge_mlp/w1", "shape"),
+    ("meshgraphnet", "node_mlp/b2", "missing"),
+    ("meshgraphnet", "decoder", "missing")])
 def test_converter_rejects_missing_or_misshapen_keys(arch, path, fault):
-    """The post-norms, ``moe`` and ``dense`` are checked key by key and
-    shape by shape, as the rest of an LM's tree is; the intact tree
+    """Each converter checks its tree key by key and shape by shape (an
+    LM's post-norms, ``moe`` and ``dense``; SASRec's blocks; MIND's
+    ``dnn``; MeshGraphNet's stacked processor MLPs, whose ``w1`` cut on its
+    last axis mis-shapes one layer's weight of the stack); the intact tree
     converts."""
     tree = jax.tree.map(np.asarray, ref_family_init(
         ref_get_arch(arch), smoke=True)(jax.random.PRNGKey(0)))
     cfg = get_arch(arch).smoke_config
-    lm_params_from_numpy(cfg, tree, "cpu")
+    convert = CONVERTERS.get(arch, lm_params_from_numpy)
+    convert(cfg, tree, "cpu")
     *parents, leaf = path.split("/")
     node = tree
     for key in parents:
-        node = node[key]
+        node = node[int(key)] if isinstance(node, list) else node[key]
     if fault == "missing":
         del node[leaf]
     else:
         node[leaf] = node[leaf][..., :-1]
     with pytest.raises(ValueError, match=leaf if fault == "shape"
                        else "missing"):
-        lm_params_from_numpy(cfg, tree, "cpu")
+        convert(cfg, tree, "cpu")
 
 
 def test_default_device_without_gpu_raises(monkeypatch):
@@ -482,10 +503,70 @@ def test_default_device_without_gpu_raises(monkeypatch):
     ("gemma2-9b", "gemma2-smoke on cpu: generated (4, 16)"),
     ("olmo-1b", "olmo-smoke on cpu: generated (4, 16)"),
     ("phi3.5-moe-42b-a6.6b", "phi35-smoke on cpu: generated (4, 16)"),
-    ("arctic-480b", "arctic-smoke on cpu: generated (4, 16)")])
+    ("arctic-480b", "arctic-smoke on cpu: generated (4, 16)"),
+    ("sasrec", "sasrec-smoke on cpu: 8 requests"),
+    ("mind", "mind-smoke on cpu: 8 requests")])
 def test_serve_runs_on_cpu_at_smoke_size(arch, want, capsys):
     assert port_serve.main(["--arch", arch, "--device", "cpu"]) == 0
-    assert want in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert want in out
+    if arch in ("sasrec", "mind"):           # 32 candidates a request
+        assert "scores (8, 32)" in out
+
+
+def test_serve_refuses_an_arch_without_a_serve_shape():
+    """meshgraphnet has no serve shape (the JAX package's serve.py dies on
+    a KeyError there); the port names the missing shape."""
+    with pytest.raises(ValueError, match="meshgraphnet has no serve shape "
+                       "\\('serve_p99'\\)"):
+        port_serve.main(["--arch", "meshgraphnet", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("llama3-8b", "prefill_32k"), ("llama3-8b", "decode_32k"),
+    ("sasrec", "serve_p99"), ("mind", "retrieval_cand"),
+    ("xdeepfm", "serve_p99")])
+def test_make_serve_step_matches_the_direct_calls(arch, shape):
+    """The serve step of an LM prefill or decode shape (its cache holding
+    ``seq - 1`` positions) and of a recsys shape computes what the
+    functions it wraps do."""
+    spec = get_arch(arch)
+    cfg = spec.smoke_config
+    spec = replace(spec, config=cfg)
+    params = family_init(spec)(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(15)
+    if spec.family == "lm":
+        sh = replace(spec.shape(shape), dims=dict(seq=12, batch=2))
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 11))
+                                .astype(np.int32))
+        if shape == "prefill_32k":
+            got = make_serve_step(spec, sh)(params, {"tokens": toks})
+            want = ptf.prefill(cfg, params, toks)
+            torch.testing.assert_close(got[1], want[1])
+            return
+        cache, logits = ptf.prefill(cfg, params, toks)
+        full = ptf.init_cache(cfg, 2, 12, device="cpu")
+        for n in ("k", "v"):
+            full[n][:, :, :11] = cache[n]
+        tok = logits.argmax(-1).to(torch.int32)
+        twin = {n: t.clone() for n, t in full.items()}
+        _, got_tok, got = make_serve_step(spec, sh)(
+            params, {"cache": full, "tokens": tok})
+        _, want_tok, want = ptf.decode_step(cfg, params, twin, tok, 11)
+        torch.testing.assert_close(got, want)
+        assert torch.equal(got_tok, want_tok)
+        return
+    sh = spec.shape(shape)
+    if arch == "xdeepfm":
+        batch = spec.smoke_batch(cfg, rng, "cpu")
+    else:
+        n = 1 if sh.kind == "retrieval" else 4
+        batch = {"seq": torch.from_numpy(rng.integers(
+            1, cfg.n_items, (n, cfg.seq_len)).astype(np.int32)),
+            "cand": torch.from_numpy(rng.integers(
+                1, cfg.n_items, (40,) if n == 1 else (n, 9)).astype(np.int32))}
+    torch.testing.assert_close(make_serve_step(spec, sh)(params, batch),
+                               serve_fn(spec, sh)(params, batch))
 
 
 @pytest.mark.parametrize("flags", [["--lines", "100"], ["--store", "x"],
