@@ -102,8 +102,9 @@ Phases (any failure raises, so the exit code is not 0):
      ``open(shard_axes=("data",))`` (candidates equal, one upload a
      segment) and a second ``open()`` (slots found by durable id, no
      upload).  Its directory lives under ``build/`` and is removed;
-  5. the CSC path: ``CscStore`` on the same lines, sized by the paper's
-     protocol (the next power of two above the DynaWarp sketch's bits), its
+  5. the CSC path: ``CscStore`` on the first 500,000 of those lines, sized
+     by the paper's protocol for phase 4's sketch (the next power of two
+     above the DynaWarp sketch's bits), its
      bits on the GPU; the same term and contains queries as one
      ``csc_probe`` call and one by one; no false negatives, scan-equal
      matches, one upload; then ``csc_probe`` against its plain version on
@@ -160,7 +161,28 @@ Phases (any failure raises, so the exit code is not 0):
      causal or padding mask dropped, MIND's validity mask dropped,
      MeshGraphNet's ``edge_mask`` ignored or last layer skipped) by
      ``FAULT_MARGIN`` x that limit; none launches a kernel;
- 11. print the ``kernels`` JSON line (launch counts of each path, the
+ 11. training: before phase 4's store is freed, the sketch-filtered
+     training corpus over it (``SketchFilteredCorpus`` with "error": one
+     engine wave, ``sketch_probe``, ``bitset_reduce`` and ``bitmap_extract``
+     launched; its batches equal to the engine's host path, no false
+     negative in a sample of the rest) and ``LMTokenPipeline`` over their
+     lines; after phase 10, the ``embedding_bag`` backward kernel against
+     its plain version at xDeepFM train_batch's wide term (V 39M, D 1, B
+     65,536, BAG 39) and at the edges (D 17 and 33, BAG 1 and 70, B 1,
+     every id equal, an unaligned gradient), within the tolerance stated
+     at ``check_ebag_backward``, rejecting the kernel rebuilt with a plain
+     store for its atomicAdd, timed beside ``index_add_``; xDeepFM
+     train_batch at full width (B 65,536 as 2 microbatches, AdamW through
+     ``make_train_step``, the wide term through the kernels forward and
+     backward), a microbatch's gradients and one step held to the plain
+     versions, a backward that drops duplicates rejected, then 5 timed
+     steps; olmo-1b train_4k at full width (16 layers, bf16, remat; batch
+     cut to 4 x 4,096) on the corpus's batches, its bf16 loss and
+     gradients held to an f32 run on the card, unshifted labels rejected,
+     its loss falling over 3 timed steps; ``launch/train.py --arch
+     xdeepfm`` (smoke config) 12 steps with checkpoints, ``--resume`` to
+     16, its losses equal to a straight run's within 1e-5;
+ 12. print the ``kernels`` JSON line (launch counts of each path, the
      error against the plain versions, times and bounds, and the launch
      floor: one empty launch timed as every kernel is), then the result.
 
@@ -173,6 +195,7 @@ exits with a non-zero code and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -219,6 +242,12 @@ LIVE_PRESENT, LIVE_ABSENT = 2, 6
 # timed a kind and count, the logical shards of its compaction and reopen,
 # and its StoreServer sample
 SHARD_LINES = 500_000
+# phase 5: the prefix of phase 4's lines the CSC store ingests (cut from all
+# 1M for the script's time when phase 11 came, as phase 4d's was); its m
+# stays the protocol's for phase 4's 1M-line DynaWarp sketch (2^27 bits,
+# about twice what the prefix alone would take), so that csc_probe's main
+# shape is the one it was
+CSC_LINES = 500_000
 SHARD_MEMORY, SHARD_PLANES, MIN_SHARD_SEGMENTS = 4 << 20, 256 << 20, 8
 SHARD_COUNTS, SHARD_REPS, SHARD_FORCED = (8, 4), 31, 4
 N_SHARD_PRESENT, N_SHARD_ABSENT, N_SHARD_NEEDLES = 2, 6, 2
@@ -321,6 +350,39 @@ REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892
 GNN_SEEDS, GNN_FANOUTS = 1024, (15, 10)
 CORA_EDGES = 10_556                  # full_graph_sm's real edges
 MOLECULES, MOLECULE_NODES, MOLECULE_EDGES = 128, 30, 64
+# phase 11: training.  The embedding_bag backward kernel's cases (V, D, B,
+# BAG, fields): xDeepFM train_batch's wide term (39 fields of 1M rows, one
+# id in each, B 65,536), then D 17 and 33, BAG 1 and 70, B 1 (the script
+# adds every id equal and a grad_out view off 16-byte alignment)
+EBAG_BACK_SHAPES = ((39_000_000, 1, 65_536, 39, 39), (100_000, 17, 512, 39, 1),
+                    (100_000, 33, 77, 70, 1), (100_000, 1, 4096, 1, 1),
+                    (100_000, 64, 1, 39, 1))
+# xDeepFM train_batch: B 65,536 as 2 microbatches (one pass of 65,536 rows
+# keeps ~62 GB of CIN products for the backward pass, past the card with
+# the step's transients), TRAIN_STEPS timed steps after a warm one.  Its
+# kernel step against the plain one: the loss within 1e-6 relative (the
+# bag sums' order is the kernel's), each gradient leaf's norm within 1e-5
+# relative (the duplicates' sums in the atomics' order)
+XDEEPFM_MICRO, TRAIN_STEPS = 2, 5
+XDEEPFM_LOSS_RTOL, XDEEPFM_GRAD_TOL = 1e-6, 1e-5
+# olmo-1b train_4k, the batch cut from 256 to 4 (Adam's f32 moments are
+# 9.4 GB, and autograd through blockwise attention's f32 blocks ~12 GB a
+# recomputed layer), over the batches of phase 4's store that hold
+# TRAIN_TERMS; LM_TRAIN_STEPS timed steps after a warm one.  bf16 against
+# f32 on the card: the loss within 2^-9 relative (one bf16 rounding; 1.2e-4
+# to 1.7e-4 at a quarter width on the CPU), each leaf's gradient norm within
+# 2^-3 relative (0.3-2% at a quarter width), but the tied embedding's
+# within 2^-1: its gradient is mostly the unembedding's, through a softmax
+# of bf16 logits whose std at random init is sqrt(d_model) = 45, so that
+# their rounding (~45 x 2^-9) moves each probability by ~9% (it read 0.239
+# on the card; 0.019 at a quarter width and 2,048 positions on the CPU).
+# Labels left unshifted must move the loss past FAULT_MARGIN x its limit
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 4, 4096, 3
+LM_LOSS_TOL, LM_GRAD_TOL, LM_EMBED_GRAD_TOL = 2 ** -9, 2 ** -3, 2 ** -1
+TRAIN_TERMS, N_LEFT_OUT_SAMPLE = ("error",), 32
+# launch/train.py at xDeepFM's smoke config: steps before and after the
+# resume, checkpoint cadence, and the resumed losses' relative tolerance
+RESUME_STEPS, RESUME_CKPT_EVERY, RESUME_RTOL = (12, 16), 5, 1e-5
 
 
 def require(cond: bool, what: str) -> None:
@@ -351,6 +413,7 @@ def launch_counters() -> dict:
     from repro_torch.kernels import (bitmap_extract, bitmap_extract_ragged,
                                      bitset_reduce, bitset_reduce_batch,
                                      bitset_reduce_ragged, csc_partition_mask,
+                                     embedding_bag_backward,
                                      embedding_bag_sum, flash_decode,
                                      match_planes, mphf_probe_arrs,
                                      retrieval_scores, token_fingerprints)
@@ -364,6 +427,7 @@ def launch_counters() -> dict:
             "csc_probe": csc_partition_mask,
             "retrieval_score": retrieval_scores,
             "embedding_bag": embedding_bag_sum,
+            "embedding_bag_backward": embedding_bag_backward,
             "flash_decode": flash_decode}
 
 
@@ -896,7 +960,7 @@ def hold_extract(torch, cases, what, flush) -> dict:
 
 # ---------------------------------------------------------------- phase 7
 def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
-               main, faults=None, also=(), flush=None) -> dict:
+               main, faults=None, also=(), flush=None, margin=1) -> dict:
     """``kernel`` against ``plain`` on every case (a tuple whose last item
     names it) within ``tol(*case, want)`` = (rtol, atol); then kernel, plain
     and ``library`` timed at ``cases[main]``, with the bytes bound of that
@@ -905,9 +969,10 @@ def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
     returns one tensor, and ``library`` None where no single PyTorch call
     computes the case's function (its time is then None).  The reading of
     an output is its largest |err| / (atol + rtol |want|): at most 1 for
-    the kernel, and above 1 for every planted fault that ``faults(*case)``
-    yields as (label, output) pairs, so that the tolerance is shown to
-    separate.  The cases of ``also`` are returned as ``at_shapes``."""
+    the kernel, and above ``margin`` for every planted fault that
+    ``faults(*case)`` yields as (label, output) pairs, so that the
+    tolerance is shown to separate.  The cases of ``also`` are returned as
+    ``at_shapes``."""
     err, worst, caught, shapes, readings = 0.0, 0.0, float("inf"), [], []
     for case in cases:
         got, want = kernel(*case), plain(*case)
@@ -929,8 +994,9 @@ def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
         planted = []
         for label, out in (faults(*case) if faults else ()):
             fr = reading(out)[1]
-            require(fr > 1, f"{name}'s tolerance passes a planted fault "
-                    f"({label}) on {case[-1]}: reading {fr}")
+            require(fr > margin, f"{name}'s tolerance passes a planted "
+                    f"fault ({label}) on {case[-1]}: reading {fr} (required "
+                    f"past {margin})")
             caught = min(caught, fr)
             planted.append(f"{label} {fr:.3g}")
         readings.append(f"{r:.3g}" + (f" ({', '.join(planted)})"
@@ -973,6 +1039,8 @@ def hold_close(torch, name, cases, kernel, plain, library, bytes_of, tol,
         at_shapes.append(dict(shape=c[-1], ms=k_ms, library_ms=lib_ms,
                               bound_ms=b_ms))
     extra = dict(at_shapes=at_shapes) if at_shapes else {}
+    if caught < float("inf"):
+        extra["fault_reading"] = caught
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 library_ms=library_ms, shape=case[-1], **cold, **extra)
 
@@ -1862,6 +1930,559 @@ def gnn_path(torch, np, dev, counters, cfg=None, shapes=None,
         del params, graph
         free(torch)
     return out
+
+
+# ---------------------------------------------------------------- phase 11
+@contextlib.contextmanager
+def swapped(owner, name, value):
+    """``owner.name`` replaced by ``value`` inside the block."""
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+def ebag_adds(torch, go, idx, rows):
+    """(additions, sum of their magnitudes) into each word of the table's
+    gradient, from the plain version."""
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_backward_ref
+    return (embedding_bag_backward_ref(torch.ones_like(go), idx, rows),
+            embedding_bag_backward_ref(go.abs(), idx, rows))
+
+
+def plain_store_backward(torch, dev):
+    """The backward kernel built with a plain store in place of its
+    ``atomicAdd`` (a copy of the source under ``build/``): the planted fault
+    that loses every addition but one into a word."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    src = (build.CSRC / "embedding_bag.cu").read_text()
+    require(src.count("atomicAdd(") == 1,
+            "embedding_bag.cu no longer holds one atomicAdd to replace")
+    path = ROOT / "build" / "ebag_fault" / "embedding_bag_plain_store.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("__device__ __forceinline__ void plain_store(float* p, "
+                    "float v) { *p = v; }\n"
+                    + src.replace("atomicAdd(", "plain_store("))
+    lib, _ = build.build_variants([path])[path.name]
+    p = ctypes.c_void_p
+    fn = build.declare(lib, "embedding_bag_backward_launch", p, p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, p, p)
+
+    def run(go, idx, rows):
+        grad = torch.empty((rows, go.shape[1]), dtype=torch.float32,
+                           device=dev)
+        build.check(lib, fn(go.data_ptr(), idx.data_ptr(), idx.shape[0],
+                            idx.shape[1], go.shape[1], rows, grad.data_ptr(),
+                            build.stream_of(go)), "plain-store backward")
+        return grad
+    return run
+
+
+def check_ebag_backward(torch, np, dev) -> dict:
+    """``embedding_bag_backward`` against its plain version
+    (``embedding_bag_backward_ref``: a zeroed table and ``index_add_``) on the
+    card, at xDeepFM train_batch's wide term and at the edges: D 17 and 33,
+    BAG 1 and 70, B 1, every id equal (the worst collision), a gradient
+    view off 16-byte alignment over a prime V.  Tolerance per word of the
+    table: rtol 1e-6 plus 4 x 2^-24 x sqrt(c) x S, where c is the count of
+    additions into the word and S the sum of their magnitudes: the
+    rounding of c f32 additions in any order (the kernel's atomics and the
+    plain version's each take their own), with a margin of 4.  The kernel
+    rebuilt with a plain store in place of its atomicAdd must read past
+    FAULT_MARGIN x that on every case with a repeated id.  Timed beside
+    one ``index_add_`` into a zeroed table (its ids and rows laid out once,
+    outside the timing)."""
+    from repro_torch.device import generator
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag_backward
+    from repro_torch.kernels.embedding_bag.ref import \
+        embedding_bag_backward_ref
+
+    gen = generator(SEED + 11, dev)
+
+    def case(v, d, b, bag, fields, same=False, offset=0):
+        ids = torch.randint(0, v // fields, (b, bag), generator=gen,
+                            device=dev, dtype=torch.int32)
+        if fields > 1:
+            ids += torch.arange(bag, device=dev, dtype=torch.int32) \
+                * (v // fields)
+        if same:
+            ids.fill_(v // 2)
+        buf = torch.randn(b * d + offset, generator=gen, device=dev)
+        go = buf[offset:].view(b, d)
+        dups = b * bag - int(torch.unique(ids).numel())
+        label = (f"V={v} D={d} B={b} BAG={bag}" + (" all ids equal" if same
+                                                   else "")
+                 + (" grad_out unaligned" if offset else "")
+                 + f" ({dups} repeated ids)")
+        return go, ids.contiguous(), v, label
+
+    cases = ([case(*s) for s in EBAG_BACK_SHAPES]
+             + [case(1000, 2, 8192, 8, 1, same=True),
+                case(99_991, 3, 1000, 7, 1, offset=1)])
+    require(cases[1][0].data_ptr() % 16 == 0
+            and cases[-1][0].data_ptr() % 16 != 0,
+            "the unaligned case is not off 16-byte alignment")
+    fault = plain_store_backward(torch, dev)
+
+    def tol(go, idx, rows, _, want):
+        c, s = ebag_adds(torch, go, idx, rows)
+        return 1e-6, 4 * 2 ** -24 * c.sqrt() * s
+
+    def faults(go, idx, rows, _):
+        if idx.numel() > int(torch.unique(idx).numel()):
+            yield "plain store for atomicAdd", fault(go, idx, rows)
+
+    laid_out = {}
+
+    def library(go, idx, rows, label):
+        if label not in laid_out:
+            b, bag = idx.shape
+            laid_out[label] = (idx.reshape(-1).long(), go[:, None, :].expand(
+                b, bag, go.shape[1]).reshape(b * bag, go.shape[1]))
+        ids, src = laid_out[label]
+        return torch.zeros((rows, go.shape[1]), device=dev).index_add_(
+            0, ids, src)
+
+    out = hold_close(
+        torch, "embedding_bag_backward", cases,
+        lambda go, i, rows, _: embedding_bag_backward(go, i, rows),
+        lambda go, i, rows, _: embedding_bag_backward_ref(go, i, rows),
+        library,
+        # the table written once, grad_out and the ids read once
+        lambda go, i, rows, _: rows * go.shape[1] * 4 + nbytes(go, i),
+        tol, 0, faults, flush=l2_flush(torch, dev), margin=FAULT_MARGIN)
+    out["repeated_ids"] = cases[0][1].numel() - int(
+        torch.unique(cases[0][1]).numel())
+    del cases, laid_out
+    free(torch)
+    return out
+
+
+def leaf_names(tree, prefix="") -> list:
+    """Dotted names of ``tree``'s leaves, in ``repro_torch.tree.leaves``
+    order (a list's items by index)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def grad_readings(torch, got, want) -> list:
+    """Per leaf, ||got - want|| / ||want|| in f32 (0 where both are 0)."""
+    from repro_torch.tree import leaves
+    out = []
+    for g, w in zip(leaves(got), leaves(want), strict=True):
+        n = float(w.float().norm())
+        d = float((g.float() - w.float()).norm())
+        out.append(d / n if n else (0.0 if d == 0 else float("inf")))
+    return out
+
+
+def train_data_path(torch, np, dev, counters, seg, vocab, batch, seq):
+    """The sketch-filtered training corpus over phase 4's store: the
+    batches whose sketch holds every TRAIN_TERMS term (one engine wave on
+    the card), held to the engine's host path, no false negative
+    in a sample of the batches it leaves out, and ``LMTokenPipeline`` over
+    their lines.  Returns (the pipeline, a summary)."""
+    from repro_torch.core.tokenizer import term_query_tokens, tokenize_line
+    from repro_torch.data import LMTokenPipeline, SketchFilteredCorpus
+    from repro_torch.logstore.compress import decompress_batch
+
+    store = seg["store"]
+    reset(counters)
+    t0 = time.perf_counter()
+    corpus = SketchFilteredCorpus(store, include_terms=TRAIN_TERMS)
+    selected = corpus.selected_batches()
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    launches = read(counters)
+    for name in ("sketch_probe", "bitset_reduce_batch", "bitmap_extract"):
+        require(launches[name] > 0,
+                f"the train_data path never launched {name}")
+    want = np.arange(store.n_batches)
+    for t in TRAIN_TERMS:
+        want = np.intersect1d(want, store.engine.host_query(
+            term_query_tokens(t)))
+    require(np.array_equal(selected, want),
+            "the corpus's batches differ from the engine's host path")
+    require(0 < len(selected) < store.n_batches,
+            f"the corpus selected {len(selected)} of {store.n_batches}")
+    left = np.setdiff1d(np.arange(store.n_batches), selected)
+    rng = np.random.default_rng(SEED)
+    sample = rng.choice(left, min(N_LEFT_OUT_SAMPLE, len(left)),
+                        replace=False)
+    toks = [set(term_query_tokens(t)) for t in TRAIN_TERMS]
+    for b in sample:
+        for line in decompress_batch(store.blobs[int(b)]):
+            lt = tokenize_line(line, ngrams=False)
+            require(not all(t <= lt for t in toks),
+                    f"batch {b}, left out, holds {TRAIN_TERMS}")
+    t0 = time.perf_counter()
+    pipe = LMTokenPipeline(corpus.lines(), vocab=vocab, batch=batch, seq=seq,
+                           seed=SEED)
+    pipe_s = time.perf_counter() - t0
+    b0 = pipe.batch_at(0)
+    require(b0["tokens"].shape == (batch, seq)
+            and 0 <= b0["tokens"].min() and b0["tokens"].max() < vocab
+            and np.array_equal(b0["labels"][:, :-1], b0["tokens"][:, 1:])
+            and np.array_equal(pipe.batch_at(0)["tokens"], b0["tokens"]),
+            "the token pipeline's batch is malformed or not repeatable")
+    print(f"train_data: {TRAIN_TERMS} selected {len(selected)} of "
+          f"{store.n_batches} batches in {probe_ms:.2f} ms (equal to the "
+          f"host path; {len(sample)} left-out batches scanned, none holds "
+          f"the terms); token pipeline {len(pipe.tokens)} tokens in "
+          f"{pipe_s:.2f} s; launches {launches}", flush=True)
+    return pipe, dict(selected=len(selected), batches=store.n_batches,
+                      probe_ms=probe_ms, pipe_tokens=len(pipe.tokens),
+                      pipe_s=pipe_s, launches=launches)
+
+
+def drop_duplicates(torch):
+    """The planted fault of the xDeepFM step: a backward that keeps one of
+    the additions into each word (``index_put_`` without accumulation)."""
+    def backward(grad_out, idx, rows):
+        b, bag = idx.shape
+        d = grad_out.shape[1]
+        return torch.zeros((rows, d), device=grad_out.device).index_put_(
+            (idx.reshape(-1).long(),),
+            grad_out[:, None, :].expand(b, bag, d).reshape(b * bag, d))
+    return backward
+
+
+def step_times(torch, np, step, params, opt, batches, counters):
+    """One warm step on ``batches[0]``, then one timed step a batch of
+    ``batches[1:]`` (host clock to its synchronised end), the launch counts
+    read around the timed steps.  Returns (params, opt, ms, losses,
+    launches)."""
+    params, opt, m = step(params, opt, batches[0])
+    losses = [float(m["loss"])]
+    reset(counters)
+    ms = []
+    for bt in batches[1:]:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, bt)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return params, opt, ms, losses, read(counters)
+
+
+def xdeepfm_train_path(torch, np, dev, counters, cfg=None,
+                       batch_rows=None) -> dict:
+    """xDeepFM train_batch at full width (39 x 1M rows, D 10, CIN
+    200-200-200, MLP 400-400; B 65,536 as XDEEPFM_MICRO microbatches) under
+    AdamW through ``make_train_step``: the wide term through
+    ``embedding_bag`` forward and backward every microbatch.  Held first,
+    from the init and one batch: a microbatch's loss and gradients through
+    the kernels against the plain versions (``embedding_bag_ref``,
+    differentiated by autograd) within XDEEPFM_LOSS_RTOL and
+    XDEEPFM_GRAD_TOL (per leaf, relative norm), a backward that drops
+    duplicates past FAULT_MARGIN x that on ``wide``, and the whole step's
+    loss and parameters (within 1e-6 relative plus 2 x the step's lr:
+    Adam's first step moves each parameter by at most lr, so a gradient of
+    another sign moves it by 2 lr).  Then one warm and TRAIN_STEPS timed
+    steps.  ``cfg`` and ``batch_rows`` shrink it when rehearsing."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import generator
+    from repro_torch.kernels.embedding_bag import ops as ebag_ops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.launch import steps
+    from repro_torch.models import recsys
+    from repro_torch.tree import leaves
+
+    spec = get_arch("xdeepfm")
+    spec = replace(spec, config=cfg or spec.config)
+    cfg = spec.config
+    shape = spec.shape("train_batch")
+    b = batch_rows or shape.dims["batch"]
+    shape = replace(shape, dims=dict(shape.dims, batch=b),
+                    n_microbatches=XDEEPFM_MICRO)
+    rng = np.random.default_rng(SEED + 20)
+
+    def batch():
+        idx = rng.integers(0, cfg.vocab_per_field, (b, cfg.n_sparse))
+        return {"idx": torch.from_numpy(idx.astype(np.int32)).to(dev),
+                "label": torch.from_numpy(
+                    rng.integers(0, 2, b).astype(np.float32)).to(dev)}
+
+    batches = [batch() for _ in range(1 + TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = steps.family_init(spec)(generator(SEED, dev))
+    opt = steps._init_opt(spec, steps.make_optimizer(spec)[0], params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = steps.make_train_step(spec, shape)
+    loss_fn = steps.family_loss(spec)
+    plain = functools.partial(swapped, recsys, "embedding_bag_sum",
+                              embedding_bag_ref)
+    first = batches[0]
+    offsets = torch.arange(cfg.n_sparse, device=dev) * cfg.vocab_per_field
+    repeated = first["idx"].numel() - int(torch.unique(
+        first["idx"] + offsets).numel())
+
+    # ------------------------------------- a microbatch's gradients, held
+    t0 = time.perf_counter()
+    mb = {k: v[:b // XDEEPFM_MICRO] for k, v in first.items()}
+    before = read(counters)
+    lk, gk = steps.value_and_grad(loss_fn, params, mb)
+    torch.cuda.synchronize()
+    after = read(counters)
+    require(after["embedding_bag"] == before["embedding_bag"] + 1
+            and after["embedding_bag_backward"]
+            == before["embedding_bag_backward"] + 1,
+            "the xDeepFM gradient did not launch embedding_bag forward and "
+            "backward once each")
+    with plain():
+        lp, gp = steps.value_and_grad(loss_fn, params, mb)
+    require(read(counters) == after, "the plain run launched a kernel")
+    with swapped(ebag_ops, "embedding_bag_backward", drop_duplicates(torch)):
+        _, gf = steps.value_and_grad(loss_fn, params, mb)
+    require(read(counters)["embedding_bag_backward"]
+            == after["embedding_bag_backward"],
+            "the faulty run launched the backward kernel")
+    loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
+    grad_err = grad_readings(torch, gk, gp)
+    names = leaf_names(params)
+    wide = names.index("wide")
+    fault = grad_readings(torch, gf, gp)[wide]
+    del gk, gp, gf
+    require(bool(torch.isfinite(lk)) and loss_err <= XDEEPFM_LOSS_RTOL,
+            f"xDeepFM loss through the kernels differs from the plain "
+            f"versions by {loss_err:.3g} (limit {XDEEPFM_LOSS_RTOL})")
+    require(max(grad_err) <= XDEEPFM_GRAD_TOL,
+            f"xDeepFM gradients through the kernels differ from the plain "
+            f"versions: {dict(zip(names, grad_err))} (limit "
+            f"{XDEEPFM_GRAD_TOL})")
+    require(fault > FAULT_MARGIN * XDEEPFM_GRAD_TOL,
+            f"a backward that drops duplicates moves wide's gradient by "
+            f"{fault:.3g} only")
+
+    # ------------------------------------------------ one step, held
+    pk, _, mk = step(params, opt, first)
+    with plain():
+        pp, _, mp = step(params, opt, first)
+    lr = float(mk["lr"])
+    step_loss_err = abs(float(mk["loss"]) - float(mp["loss"])) \
+        / abs(float(mp["loss"]))
+    param_err = max(float((a - w).abs().max()) / (1e-6 * float(w.abs().max())
+                                                  + 2 * lr)
+                    for a, w in zip(leaves(pk), leaves(pp)))
+    del pk, pp
+    require(step_loss_err <= XDEEPFM_LOSS_RTOL and param_err <= 1,
+            f"the xDeepFM step through the kernels differs from the plain "
+            f"one: loss {step_loss_err:.3g}, parameters {param_err:.3g} of "
+            f"the limit")
+    free(torch)
+
+    check_s = time.perf_counter() - t0
+
+    # ------------------------------------------------------ timed steps
+    t0 = time.perf_counter()
+    params, opt, ms, losses, launches = step_times(torch, np, step, params,
+                                                   opt, batches, counters)
+    steps_s = time.perf_counter() - t0
+    for name in ("embedding_bag", "embedding_bag_backward"):
+        require(launches[name] == TRAIN_STEPS * XDEEPFM_MICRO,
+                f"xDeepFM's timed steps launched {name} "
+                f"{launches[name]} times, not once a microbatch")
+    require(all(np.isfinite(losses)), "xDeepFM's loss is not finite")
+    top = []
+    busy = device_busy(torch, lambda: step(params, opt, batches[1]), top=top)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    p50, p99 = percentiles(np, ms)
+    out = dict(rows=cfg.total_vocab, embed_dim=cfg.embed_dim, batch=b,
+               microbatches=XDEEPFM_MICRO, steps=TRAIN_STEPS, init_s=init_s,
+               check_s=check_s, steps_s=steps_s,
+               step_ms_p50=p50, step_ms_p99=p99, rows_per_s=b / p50 * 1e3,
+               peak_gb=peak, losses=losses, repeated_ids=repeated,
+               loss_rel_err=loss_err, grad_rel_err=dict(zip(names, grad_err)),
+               wide_fault=fault, step_loss_rel_err=step_loss_err,
+               step_param_reading=param_err, profiled_ms=busy[0],
+               busy_ms=busy[1], top_kernels=top[:TOP_KERNELS],
+               launches=launches)
+    print(f"xdeepfm train_batch: {cfg.total_vocab} rows x {cfg.embed_dim}, "
+          f"B {b} as {XDEEPFM_MICRO} microbatches ({repeated} repeated ids "
+          f"in the first batch); kernels against plain: loss "
+          f"{loss_err:.3g} (limit {XDEEPFM_LOSS_RTOL}), gradients <= "
+          f"{max(grad_err):.3g} (wide {grad_err[wide]:.3g}; limit "
+          f"{XDEEPFM_GRAD_TOL}), duplicates dropped {fault:.3g} on wide; "
+          f"one step: loss {step_loss_err:.3g}, parameters {param_err:.3g} "
+          f"of the limit; {TRAIN_STEPS} steps p50 {p50:.1f} ms p99 "
+          f"{p99:.1f} ms ({b / p50 * 1e3:,.0f} rows/s), losses "
+          f"{[round(x, 5) for x in losses]}, peak {peak:.2f} GB; device busy "
+          f"per step {busy_text(*busy)} ({top_text(top)}); init "
+          f"{init_s:.1f} s, checks {check_s:.1f} s, warm and timed steps "
+          f"{steps_s:.1f} s; launches {launches}", flush=True)
+    del params, opt, batches
+    free(torch)
+    return out
+
+
+def lm_train_path(torch, np, dev, counters, pipe, cfg=None) -> dict:
+    """olmo-1b train_4k at full width (16 layers, d 2048, bf16, tied
+    embeddings; remat a layer; AdamW, one microbatch as its spec), its
+    batch cut to ``pipe.batch`` x ``pipe.seq``, on batches of the
+    sketch-filtered corpus.  Held first: the bf16 loss and gradients of
+    ``pipe.batch_at(0)`` against the same step in f32 on the card (loss
+    relative error within LM_LOSS_TOL, each leaf's relative gradient-norm
+    error within LM_GRAD_TOL), and the loss with the labels left unshifted
+    past FAULT_MARGIN x LM_LOSS_TOL.  Then one warm and LM_TRAIN_STEPS
+    timed steps on that batch, its loss required to fall.  No kernel lies
+    on this path (training attends with ``blockwise_attention``, as the
+    JAX package does).  ``cfg`` shrinks it when rehearsing."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import generator
+    from repro_torch.launch import steps
+    from repro_torch.tree import leaves
+
+    spec = get_arch("olmo-1b")
+    spec = replace(spec, config=cfg or spec.config)
+    cfg = spec.config
+    shape = replace(spec.shape("train_4k"),
+                    dims=dict(seq=pipe.seq, batch=pipe.batch))
+    fixed = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(0).items()}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = steps.family_init(spec)(generator(SEED, dev))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(params))
+
+    # ------------------------------------------ bf16 against f32, held
+    t0 = time.perf_counter()
+    loss_fn = steps.family_loss(spec)
+    lb, gb = steps.value_and_grad(loss_fn, params, fixed)
+    with torch.no_grad():
+        unshifted = float(loss_fn(params, dict(fixed,
+                                               labels=fixed["tokens"])))
+    p32 = cast_tree(params, lambda t: t.float())
+    spec32 = replace(spec, config=replace(cfg, dtype="float32"))
+    l32, g32 = steps.value_and_grad(steps.family_loss(spec32), p32, fixed)
+    loss_err = abs(float(lb) - float(l32)) / abs(float(l32))
+    fault = abs(unshifted - float(l32)) / abs(float(l32))
+    grad_err = dict(zip(leaf_names(params), grad_readings(torch, gb, g32)))
+    del p32, g32, gb
+    free(torch)
+    print(f"olmo-1b bf16 against f32, gradient norms by leaf: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in grad_err.items()),
+          flush=True)
+    require(bool(torch.isfinite(lb)) and loss_err <= LM_LOSS_TOL,
+            f"olmo-1b's bf16 loss differs from f32 by {loss_err:.3g} "
+            f"(limit {LM_LOSS_TOL})")
+    for name, err in grad_err.items():
+        limit = LM_EMBED_GRAD_TOL if name == "embed" else LM_GRAD_TOL
+        require(err <= limit, f"olmo-1b's bf16 gradient of {name} differs "
+                f"from f32 by {err:.3g} (limit {limit})")
+    require(fault > FAULT_MARGIN * LM_LOSS_TOL,
+            f"olmo-1b's loss with unshifted labels moves by {fault:.3g} only")
+
+    check_s = time.perf_counter() - t0
+
+    # ------------------------------------------------------ timed steps
+    t0 = time.perf_counter()
+    opt = steps._init_opt(spec, steps.make_optimizer(spec)[0], params)
+    step = steps.make_train_step(spec, shape)
+    params, opt, ms, losses, launches = step_times(
+        torch, np, step, params, opt, [fixed] * (1 + LM_TRAIN_STEPS),
+        counters)
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"olmo-1b's loss on a repeated batch did not fall: {losses}")
+    steps_s = time.perf_counter() - t0
+    top = []
+    busy = device_busy(torch, lambda: step(params, opt, fixed), top=top)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    p50, p99 = percentiles(np, ms)
+    tokens = pipe.batch * pipe.seq
+    out = dict(params=n_params, batch=pipe.batch, seq=pipe.seq,
+               steps=LM_TRAIN_STEPS, init_s=init_s, check_s=check_s,
+               steps_s=steps_s, step_s_p50=p50 / 1e3,
+               step_s_p99=p99 / 1e3, tokens_per_s=tokens / p50 * 1e3,
+               peak_gb=peak, losses=losses, loss_rel_err=loss_err,
+               grad_rel_err=grad_err, unshifted_fault=fault,
+               profiled_ms=busy[0], busy_ms=busy[1],
+               top_kernels=top[:TOP_KERNELS], launches=launches)
+    print(f"olmo-1b train_4k: {n_params / 1e9:.3f}B params bf16, batch "
+          f"{pipe.batch} x {pipe.seq}; bf16 against f32: loss "
+          f"{loss_err:.3g} (limit {LM_LOSS_TOL}), gradient norms: embed "
+          f"{grad_err['embed']:.3g} (limit {LM_EMBED_GRAD_TOL}), the rest <= "
+          f"{max(v for k, v in grad_err.items() if k != 'embed'):.3g} "
+          f"(limit {LM_GRAD_TOL}), labels unshifted "
+          f"{fault:.3g}; {LM_TRAIN_STEPS} steps p50 {p50 / 1e3:.3f} s p99 "
+          f"{p99 / 1e3:.3f} s ({tokens / p50 * 1e3:,.0f} tokens/s), losses "
+          f"{[round(x, 4) for x in losses]}, peak {peak:.2f} GB; device busy "
+          f"per step {busy_text(*busy)} ({top_text(top)}); init "
+          f"{init_s:.1f} s, checks {check_s:.1f} s, warm and timed steps "
+          f"{steps_s:.1f} s; launches {launches}", flush=True)
+    del params, opt
+    free(torch)
+    return out
+
+
+def train_resume_path(torch, np, dev, counters) -> dict:
+    """``launch/train.py --arch xdeepfm`` at its smoke config on the card:
+    RESUME_STEPS[0] steps with a checkpoint every RESUME_CKPT_EVERY, then
+    ``--resume`` to RESUME_STEPS[1], against one straight run of
+    RESUME_STEPS[1] steps; the resumed losses within RESUME_RTOL of the
+    straight ones (the backward's atomics order the wide term's sums
+    differently from run to run).  Its checkpoints live under ``build/``
+    and are removed."""
+    from repro_torch.launch import train
+
+    first_n, total = RESUME_STEPS
+    tmp = Path(tempfile.mkdtemp(prefix="train-", dir=ROOT / "build"))
+    common = ["--arch", "xdeepfm", "--device", str(dev), "--log-every", "100"]
+    try:
+        reset(counters)
+        t0 = time.perf_counter()
+        straight = train.run(common + ["--steps", str(total), "--ckpt-dir",
+                                       str(tmp / "straight")])
+        first = train.run(common + ["--steps", str(first_n), "--ckpt-every",
+                                    str(RESUME_CKPT_EVERY), "--ckpt-dir",
+                                    str(tmp / "resumed")])
+        saved = sorted(os.listdir(tmp / "resumed"))
+        resumed = train.run(common + ["--steps", str(total), "--resume",
+                                      "--ckpt-dir", str(tmp / "resumed")])
+        wall_s = time.perf_counter() - t0
+        launches = read(counters)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(straight["rc"] == first["rc"] == resumed["rc"] == 0,
+            "a launch/train.py run failed")
+    want = [f"step_{s:010d}.npz" for s in range(RESUME_CKPT_EVERY, first_n,
+                                                   RESUME_CKPT_EVERY)]
+    require(saved == sorted(want + [f"step_{first_n - 1:010d}.npz",
+                                    "MANIFEST.json"]),
+            f"launch/train.py's checkpoints are {saved}")
+    require(resumed["start_step"] == first_n
+            and sorted(resumed["losses"]) == list(range(first_n, total)),
+            "the resumed run did not start after the last checkpoint")
+    err = max(abs(resumed["losses"][s] - straight["losses"][s])
+              / abs(straight["losses"][s]) for s in range(first_n, total))
+    require(err <= RESUME_RTOL,
+            f"the resumed run's losses differ from the straight run's by "
+            f"{err:.3g} (limit {RESUME_RTOL})")
+    for name in ("embedding_bag", "embedding_bag_backward"):
+        require(launches[name] > 0,
+                f"the resumed training path never launched {name}")
+    print(f"launch/train.py (xdeepfm smoke): {total} straight steps, {first_n} "
+          f"then --resume to {total}: losses of steps {first_n}-{total - 1} "
+          f"within {err:.3g} of the straight run (limit {RESUME_RTOL}); "
+          f"checkpoints {saved}; {wall_s:.1f} s; launches {launches}",
+          flush=True)
+    return dict(steps=total, resumed_from=first_n, loss_rel_err=err,
+                losses=straight["losses"], wall_s=wall_s, launches=launches)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -3241,9 +3862,10 @@ def sharded_path(torch, np, dev, counters, seg, tmp) -> dict:
 
 # ---------------------------------------------------------------- phase 5
 def csc_path(torch, np, dev, counters, seg) -> dict:
-    """CscStore on the segmented path's lines, sized by the paper's
-    protocol; the same term and contains queries as one csc_probe call
-    over every fingerprint and as per-query calls."""
+    """CscStore on the first CSC_LINES of the segmented path's lines, sized
+    by the paper's protocol for phase 4's sketch; the same term and
+    contains queries as one csc_probe call over every fingerprint and as
+    per-query calls, held to the scan store's matches over the prefix."""
     from repro_torch.core.hashing import token_fingerprint
     from repro_torch.core.tokenizer import (_ALNUM, contains_query_tokens,
                                             term_query_tokens)
@@ -3269,8 +3891,9 @@ def csc_path(torch, np, dev, counters, seg) -> dict:
 
     reset(counters)
     t0 = time.perf_counter()
+    lines = ds.lines[:CSC_LINES]
     csc = CscStore(batch_lines=BATCH_LINES, m_bits=m_bits, device=dev)
-    csc.ingest(ds.lines)
+    csc.ingest(lines)
     csc.finish()
     ingest_s = time.perf_counter() - t0
 
@@ -3299,7 +3922,8 @@ def csc_path(torch, np, dev, counters, seg) -> dict:
     print(f"csc device busy: wave {busy_text(*wave_busy)}; 512 per-query "
           f"term calls {busy_text(*sample_busy)}", flush=True)
     print(f"csc: m = {csc.sketch.m} bits (DynaWarp sketch {dw_bits} bits), "
-          f"{csc.n_batches} batches, ingest+finish {ingest_s:.1f} s; wave of "
+          f"the first {len(lines)} lines, {csc.n_batches} batches, "
+          f"ingest+finish {ingest_s:.1f} s; wave of "
           f"{len(wave_fps)} fingerprints ({n_q} queries) in one csc_probe "
           f"call: cold {cold_s * 1e3:.2f} ms, warm {warm_s * 1e3:.2f} ms = "
           f"{n_q / warm_s:.0f} q/s; per-query candidates {per_query_s:.3f} s"
@@ -3327,19 +3951,28 @@ def csc_path(torch, np, dev, counters, seg) -> dict:
                 _ALNUM.findall("\n".join(csc._batch_lower(b)[1]))):
             truth[t].append(b)
     starts = np.asarray(csc.batch_start)
+
+    def in_prefix(matches):
+        return [m for m in matches if m < len(lines)]
+
     for t, matches in seg["truth"].items():
-        want = np.unique(np.searchsorted(starts, matches, side="right") - 1)
+        want = np.unique(np.searchsorted(
+            starts, np.asarray(in_prefix(matches), np.int64),
+            side="right") - 1)
         require(np.array_equal(want, truth[t]),
                 f"the one-pass truth differs from the scan store on {t!r}")
-    dw_cands = dw.candidates_term_batch(terms)
+    # phase 4's DynaWarp store holds all the lines: its batches past the
+    # prefix are left out
+    dw_cands = [d[d < csc.n_batches] for d in dw.candidates_term_batch(terms)]
     for t, c, d in zip(terms, per_term, dw_cands):
         require(np.isin(truth[t], c).all(), f"csc false negative on {t!r}")
         require(np.isin(truth[t], d).all(), f"dynawarp false negative on {t!r}")
     for t, want in seg["truth"].items():
-        require(csc.query_term(t).matches == want,
+        require(csc.query_term(t).matches == in_prefix(want),
                 f"csc matches differ from the scan store on {t!r}")
     for n in needles[:2]:
-        require(csc.query_contains(n).matches == scan.query_contains(n).matches,
+        require(csc.query_contains(n).matches
+                == in_prefix(scan.query_contains(n).matches),
                 f"csc contains matches differ from the scan store on {n!r}")
     require(csc.sketch.upload_count == 1, "the csc sketch uploaded more than once")
     fp_csc = [len(c) - len(truth[t]) for t, c in zip(terms, per_term)]
@@ -3519,6 +4152,7 @@ def main() -> int:
               "script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_arch
     from repro_torch.kernels import build
     # the plain versions' f32 products in full f32, as the JAX package's
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3635,6 +4269,11 @@ def main() -> int:
                  "token_hash", "csc_probe"):
         require(hunt["launches"][name] > 0,
                 f"the log_search path never launched {name}")
+    pipe, train_data = train_data_path(
+        torch, np, dev, counters, seg, get_arch("olmo-1b").config.vocab,
+        LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    paths["train_data"] = train_data.pop("launches")
+    timed("phase 11a (the sketch-filtered corpus)")
     del seg
     free(torch)
     lm = {}
@@ -3650,9 +4289,22 @@ def main() -> int:
     timed("phase 10")
     paths["two_tower"] = rec["two_tower"].pop("launches")
     paths["xdeepfm"] = rec["xdeepfm"].pop("launches")
+    kernels["embedding_bag_backward"] = check_ebag_backward(torch, np, dev)
+    train = dict(data=train_data,
+                 xdeepfm=xdeepfm_train_path(torch, np, dev, counters))
+    train["olmo-1b"] = lm_train_path(torch, np, dev, counters, pipe)
+    del pipe
+    train["resume"] = train_resume_path(torch, np, dev, counters)
+    for name, path in (("xdeepfm", "xdeepfm_train"), ("olmo-1b", "lm_train"),
+                       ("resume", "train_resume")):
+        paths[path] = train[name].pop("launches")
+    timed("phase 11")
     for path, name in ([(f"lm {arch}", "flash_decode") for arch in lm]
                        + [("two_tower", "retrieval_score"),
-                          ("xdeepfm", "embedding_bag")]):
+                          ("xdeepfm", "embedding_bag"),
+                          ("xdeepfm_train", "embedding_bag"),
+                          ("xdeepfm_train", "embedding_bag_backward"),
+                          ("train_resume", "embedding_bag_backward")]):
         require(paths[path][name] > 0, f"the {path} path never launched {name}")
 
     src = "src/repro_torch/kernels/csrc/"
@@ -3673,6 +4325,10 @@ def main() -> int:
                             "src/repro/kernels/retrieval_score/kernel.py:31"),
         "embedding_bag": (src + "embedding_bag.cu",
                           "src/repro/kernels/embedding_bag/kernel.py:36"),
+        # no Pallas kernel: the JAX package differentiates the wide term's
+        # jnp.take with jax.value_and_grad
+        "embedding_bag_backward": (src + "embedding_bag.cu",
+                                   "src/repro/models/recsys.py:112"),
         "flash_decode": (src + "flash_decode.cu",
                          "src/repro/kernels/flash_decode/kernel.py:68"),
     }
@@ -3687,7 +4343,8 @@ def main() -> int:
                  **{key: k[key] for key in ("cold_ms", "library_cold_ms",
                                             "at_shapes",
                                             "at_launch", "at_waves",
-                                            "at_reopen",
+                                            "at_reopen", "fault_reading",
+                                            "repeated_ids",
                                             "probe_entry", "batch_entry",
                                             "padded_entry") if key in k})
             for name, k in kernels.items()]
@@ -3699,7 +4356,7 @@ def main() -> int:
                           serve=served["summary"],
                           sharded=sharded["summary"],
                           csc=csc, log_search=hunt["stores"], lm=lm,
-                          recsys=rec, archs=archs)))
+                          recsys=rec, archs=archs, train=train)))
     print(json.dumps({"kernels": rows, "launch_floor_ms": floor_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

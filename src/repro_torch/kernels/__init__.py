@@ -11,7 +11,8 @@
   token_hash      — batched token fingerprinting (ingest and query waves)
   csc_probe       — CSC baseline probe (the sketch-vs-sketch comparison)
   retrieval_score — two-tower retrieval: one query against a 1M-row corpus
-  embedding_bag   — fixed-size bag sums (xDeepFM's wide term)
+  embedding_bag   — fixed-size bag sums (xDeepFM's wide term) and their
+                    gradient with respect to the table (its training step)
   flash_decode    — one-token GQA attention against a KV cache (LM decode)
 
 Each package has ``ops.py`` (the wrapper: checks, launch on CUDA tensors,
@@ -23,7 +24,7 @@ from .bitmap_extract.ops import bitmap_extract, bitmap_extract_ragged
 from .bitset_ops.ops import (bitset_reduce, bitset_reduce_batch,
                              bitset_reduce_ragged)
 from .csc_probe.ops import csc_partition_mask
-from .embedding_bag.ops import embedding_bag_sum
+from .embedding_bag.ops import embedding_bag_backward, embedding_bag_sum
 from .flash_decode.ops import flash_decode
 from .retrieval_score.ops import retrieval_scores, retrieval_topk
 from .sketch_probe.ops import match_planes, mphf_probe, mphf_probe_arrs
@@ -31,6 +32,7 @@ from .token_hash.ops import token_fingerprints
 
 __all__ = ["bitmap_extract", "bitmap_extract_ragged", "bitset_reduce",
            "bitset_reduce_batch", "bitset_reduce_ragged",
-           "csc_partition_mask", "embedding_bag_sum", "flash_decode",
+           "csc_partition_mask", "embedding_bag_backward",
+           "embedding_bag_sum", "flash_decode",
            "match_planes", "mphf_probe", "mphf_probe_arrs",
            "retrieval_scores", "retrieval_topk", "token_fingerprints"]

@@ -31,7 +31,8 @@
 // entry's lane for each entry) cost 5% at the path's shape and 15% at D 8
 // and 64, so the tree stays and the order is what the tolerance covers.
 // Contract, as the TPU kernel's: 0 <= idx < V (the wrapper checks it only
-// on the CPU, where it costs no device sync).
+// on the CPU, where it costs no device sync).  The table's gradient is
+// embedding_bag_backward_launch, below.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -129,6 +130,60 @@ extern "C" int embedding_bag_launch(const void* table, const void* idx, int b, i
     embedding_bag_kernel<float><<<blocks, kThreads, 0, s>>>(
         static_cast<const float*>(table), static_cast<const int*>(idx), b, bag, dv, g_log,
         c_log, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- backward
+// embedding_bag_backward: the gradient of the bag sums with respect to the
+// table.  grad_table[idx[b, j], d] += grad_out[b, d] for every b < B, j <
+// BAG, d < D, into a (V, D) f32 table that the launch zeroes first; ids
+// that repeat, within a bag or across bags, add up.  On the training path
+// it is xDeepFM's wide term: V 39M, D 1, B 65,536, BAG 39.
+//
+// Replaces no TPU kernel: the JAX package differentiates its wide term's
+// jnp.take with jax.value_and_grad and has no Pallas backward.  It exists
+// because the port computes that term through the forward kernel above,
+// a ctypes call that autograd cannot see through.
+//
+// What bounds it on an H100: memory.  The table must be zeroed (V D 4
+// bytes, 156 MB at the path's shape), and each (b, j, d) reads its id and
+// its gradient and does one read-modify-write of a table word, at random
+// rows of a table three times the L2.  The design is the simple one: a
+// thread per (b, j, d), d fastest, so that the lanes of a wide row update
+// neighbouring words, and an atomicAdd, since nothing orders the writers
+// of one row.  The order of the additions into a word is the atomics' own,
+// so a sum of duplicates rounds differently from run to run.
+constexpr int kBackThreads = 256;
+constexpr long long kBackMaxBlocks = 1 << 20;   // past it the blocks stride
+
+__global__ void __launch_bounds__(kBackThreads)
+embedding_bag_backward_kernel(const float* __restrict__ grad_out, const int* __restrict__ idx,
+                              long long n, int bag, int d, float* __restrict__ grad_table) {
+  const long long stride = static_cast<long long>(gridDim.x) * kBackThreads;
+  for (long long t = static_cast<long long>(blockIdx.x) * kBackThreads + threadIdx.x; t < n;
+       t += stride) {
+    const long long entry = t / d;  // b * BAG + j
+    const int col = static_cast<int>(t - entry * d);
+    const long long b = entry / bag;
+    const int id = __ldg(idx + entry);
+    atomicAdd(grad_table + static_cast<long long>(id) * d + col, __ldg(grad_out + b * d + col));
+  }
+}
+
+extern "C" int embedding_bag_backward_launch(const void* grad_out, const void* idx, int b,
+                                             int bag, int d, long long v, void* grad_table,
+                                             void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      cudaMemsetAsync(grad_table, 0, static_cast<size_t>(v) * d * sizeof(float), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = static_cast<long long>(b) * bag * d;
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  long long blocks = (n + kBackThreads - 1) / kBackThreads;
+  if (blocks > kBackMaxBlocks) blocks = kBackMaxBlocks;
+  embedding_bag_backward_kernel<<<static_cast<unsigned>(blocks), kBackThreads, 0, s>>>(
+      static_cast<const float*>(grad_out), static_cast<const int*>(idx), n, bag, d,
+      static_cast<float*>(grad_table));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,9 @@ port's parameters on a device.  The port keeps the JAX keys, so the
 conversion is a name map that checks every key and shape it expects.
 JAX bfloat16 arrays come out of ``np.asarray`` as ``ml_dtypes.bfloat16``,
 which ``torch.from_numpy`` refuses: they go through float32 (exact) and
-back to bfloat16.
+back to bfloat16.  The optimizer states (``AdamState``,
+``AdafactorState``) carry across the same way, so that both packages can
+start a step from one state.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..optim.adafactor import AdafactorState
+from ..optim.adam import AdamState
 from .gnn import GNNConfig, _mlp_sizes
 from .recsys import MINDConfig, SASRecConfig, TwoTowerConfig, XDeepFMConfig
 from .transformer import LMConfig, check_supported
@@ -184,3 +188,36 @@ def gnn_params_from_numpy(cfg: GNNConfig, tree: dict, device=None) -> dict:
     return {name: _mlp(tree.get(name, {}), _mlp_sizes(cfg, d_in, d_out), dev,
                        name, lead)
             for name, (d_in, d_out, lead) in mlps.items()}
+
+
+def _tree_from_numpy(tree, device):
+    """Nested dicts and lists of numpy arrays -> the same of tensors."""
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_numpy(v, device) for v in tree]
+    return tensor_from_numpy(tree, device)
+
+
+def _step_from_numpy(step, device) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                        device=device)
+
+
+def adam_state_from_numpy(state, device=None) -> AdamState:
+    """The JAX package's ``AdamState`` as numpy leaves
+    (``jax.tree.map(np.asarray, state)``): ``step``, ``mu``, ``nu``."""
+    dev = resolve_device(device)
+    return AdamState(step=_step_from_numpy(state.step, dev),
+                     mu=_tree_from_numpy(state.mu, dev),
+                     nu=_tree_from_numpy(state.nu, dev))
+
+
+def adafactor_state_from_numpy(state, device=None) -> AdafactorState:
+    """The JAX package's ``AdafactorState`` as numpy leaves: ``step``,
+    ``mu`` (bf16 by default), ``vr``, ``vc``."""
+    dev = resolve_device(device)
+    return AdafactorState(step=_step_from_numpy(state.step, dev),
+                          mu=_tree_from_numpy(state.mu, dev),
+                          vr=_tree_from_numpy(state.vr, dev),
+                          vc=_tree_from_numpy(state.vc, dev))

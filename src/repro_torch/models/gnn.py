@@ -16,14 +16,18 @@ node features (N, d_feat), ``edge_mask`` zeroing padded edges,
 endpoints' states; only the masks keep them out of the sums.  Batched
 small graphs are one disjoint graph with offset node ids.  The processor
 MLPs are stacked with a leading ``n_layers`` axis, as in the JAX tree.
-The training loss is not yet ported.
+Training is ``gnn_loss``, the masked node-regression L2; with ``remat``
+each message-passing layer is recomputed in the backward pass
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .layers import layer_norm_nonparam, mlp_apply, mlp_init, torch_dtype
 
@@ -101,28 +105,51 @@ def _aggregate(cfg: GNNConfig, messages: torch.Tensor,
     raise ValueError(cfg.aggregator)
 
 
+def _process(cfg: GNNConfig, h: torch.Tensor, e: torch.Tensor,
+             edge_w: dict, node_w: dict, snd: torch.Tensor, rcv: torch.Tensor,
+             emask: torch.Tensor):
+    """One message-passing layer: (h, e) -> (h', e')."""
+    msg_in = torch.cat([e, h[snd], h[rcv]], -1)
+    e_new = mlp_apply(edge_w, msg_in) * emask
+    e = e + layer_norm_nonparam(e_new) * emask
+    agg = _aggregate(cfg, e, rcv, h.shape[0])
+    return h + layer_norm_nonparam(mlp_apply(node_w, torch.cat([h, agg], -1))), e
+
+
 def forward(cfg: GNNConfig, params: dict, graph: dict, *,
             remat: bool = True) -> torch.Tensor:
     """graph: dict(nodes (N, d_node_in), edges (E, d_edge_in), senders (E,),
     receivers (E,), edge_mask (E,), node_mask (N,)) -> (N, d_out) decoded
-    per-node output.  ``remat`` (and ``cfg.scan_layers``) change nothing
-    without gradients; they are accepted as the JAX package takes them."""
-    n_nodes = graph["nodes"].shape[0]
+    per-node output.  With ``remat`` and gradients on, each layer keeps only
+    its inputs for the backward pass and is run again there;
+    ``cfg.scan_layers`` changes nothing here."""
     emask = graph["edge_mask"][:, None].to(cfg.compute_dtype)
     h = layer_norm_nonparam(mlp_apply(params["node_enc"], graph["nodes"]))
     e = layer_norm_nonparam(mlp_apply(params["edge_enc"], graph["edges"])) \
         * emask
     snd, rcv = graph["senders"].long(), graph["receivers"].long()
+    layer = partial(_process, cfg)
     for i in range(cfg.n_layers):
         edge_w = {k: w[i] for k, w in params["edge_mlp"].items()}
         node_w = {k: w[i] for k, w in params["node_mlp"].items()}
-        msg_in = torch.cat([e, h[snd], h[rcv]], -1)
-        e_new = mlp_apply(edge_w, msg_in) * emask
-        e = e + layer_norm_nonparam(e_new) * emask
-        agg = _aggregate(cfg, e, rcv, n_nodes)
-        h = h + layer_norm_nonparam(mlp_apply(node_w, torch.cat([h, agg], -1)))
+        args = (h, e, edge_w, node_w, snd, rcv, emask)
+        if remat and torch.is_grad_enabled():
+            h, e = checkpoint(layer, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            h, e = layer(*args)
     out = mlp_apply(params["decoder"], h)
     return out * graph["node_mask"][:, None].to(out.dtype)
+
+
+def gnn_loss(cfg: GNNConfig, params: dict, batch: dict, *,
+             remat: bool = True):
+    """Node-regression L2 against ``batch["targets"]`` (N, d_out) over the
+    unmasked nodes: (se / max(sum(node_mask) * d_out, 1), se)."""
+    pred = forward(cfg, params, batch, remat=remat)
+    m = batch["node_mask"][:, None].to(torch.float32)
+    se = ((pred - batch["targets"]).to(torch.float32).square() * m).sum()
+    return se / (m.sum() * cfg.d_out).clamp_min(1.0), se
 
 
 # ------------------------------------------------------------- sampler

@@ -110,3 +110,17 @@ def softcap(logits: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return logits
     return cap * torch.tanh(logits / cap)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean CE over the valid positions, the logits cast to f32; with a
+    mask, sum(nll * mask) / max(sum(mask), 1)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        m = mask.to(torch.float32)
+        return (nll * m).sum() / m.sum().clamp_min(1.0)
+    return nll.mean()

@@ -8,8 +8,11 @@ D = 1, and two-tower retrieval scores the 1M-row corpus with
 ``retrieval_scores``; on CPU tensors both take their plain versions.  The
 CIN, the towers' MLPs, the field lookups, SASRec and MIND stay plain torch,
 as in the JAX package, where they reach no Pallas kernel (SASRec and MIND
-retrieval score with a plain product).  Item id 0 is padding.  The
-training losses are not yet ported.
+retrieval score with a plain product).  Item id 0 is padding.  Each arch
+has its training loss (``xdeepfm_loss``, ``sasrec_loss``, ``mind_loss``,
+``twotower_loss``), which returns (loss, logits) as the JAX package's do;
+``embedding_bag_sum`` is differentiable, its backward a kernel of its own
+on the card.
 """
 from __future__ import annotations
 
@@ -123,6 +126,17 @@ def xdeepfm_logits(cfg: XDeepFMConfig, params: dict, idx: torch.Tensor
     return wide + cin_out + dnn_out + params["bias"]
 
 
+def xdeepfm_loss(cfg: XDeepFMConfig, params: dict, batch: dict):
+    """batch: idx (B, n_sparse), label (B,) in {0, 1} -> (mean binary
+    cross-entropy in the stable form max(x, 0) - x y + log1p(exp(-|x|)),
+    f32 logits)."""
+    logits = xdeepfm_logits(cfg, params, batch["idx"]).to(torch.float32)
+    y = batch["label"].to(torch.float32)
+    loss = (torch.clamp_min(logits, 0) - logits * y
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
+    return loss, logits
+
+
 def xdeepfm_retrieval(cfg: XDeepFMConfig, params: dict, batch: dict
                       ) -> torch.Tensor:
     """Score n_candidates items for ONE user context: the candidate id
@@ -205,6 +219,19 @@ def sasrec_encode(cfg: SASRecConfig, params: dict, seq: torch.Tensor
     return rms_norm(x, params["ln_f"]) * valid[..., None].to(x.dtype)
 
 
+def sasrec_loss(cfg: SASRecConfig, params: dict, batch: dict):
+    """BCE over (positive next item, sampled negative) at each position whose
+    positive is an item: seq, pos, neg (B, L).  Returns (loss, the
+    positives' f32 scores)."""
+    h = sasrec_encode(cfg, params, batch["seq"])
+    sp = (h * params["item_emb"][batch["pos"]]).sum(-1).to(torch.float32)
+    sn = (h * params["item_emb"][batch["neg"]]).sum(-1).to(torch.float32)
+    m = _valid(batch["pos"]).to(torch.float32)
+    loss = -(torch.log(torch.sigmoid(sp) + 1e-24)
+             + torch.log(1 - torch.sigmoid(sn) + 1e-24)) * m
+    return loss.sum() / m.sum().clamp_min(1.0), sp
+
+
 def sasrec_serve(cfg: SASRecConfig, params: dict, batch: dict
                  ) -> torch.Tensor:
     """Score each request's candidates: seq (B, L), cand (B, C) -> (B, C)."""
@@ -272,6 +299,22 @@ def mind_interests(cfg: MINDConfig, params: dict, seq: torch.Tensor
     dnn = params["dnn"]
     return mlp_apply(dnn, u.to(torch.promote_types(u.dtype, dnn["w0"].dtype))
                      ) + u                                     # H-layer + skip
+
+
+def mind_loss(cfg: MINDConfig, params: dict, batch: dict):
+    """Sampled softmax with label-aware attention (power 2): seq (B, L), pos
+    (B,), neg (B, N).  The attention over interests is softmax(score ** 2)
+    in f32.  Returns (loss, (B, 1 + N) f32 logits, the positive first)."""
+    u = mind_interests(cfg, params, batch["seq"])              # (B, K, D)
+    pe = params["item_emb"][batch["pos"]]                      # (B, D)
+    att = torch.softmax(
+        torch.einsum("bkd,bd->bk", u, pe).to(torch.float32) ** 2, -1)
+    v_u = torch.einsum("bk,bkd->bd", att.to(u.dtype), u)       # (B, D)
+    ne = params["item_emb"][batch["neg"]]                      # (B, N, D)
+    sp = (v_u * pe).sum(-1, keepdim=True)
+    sn = torch.einsum("bd,bnd->bn", v_u, ne)
+    logits = torch.cat([sp, sn], -1).to(torch.float32)
+    return -torch.log_softmax(logits, -1)[:, 0].mean(), logits
 
 
 def mind_serve(cfg: MINDConfig, params: dict, batch: dict) -> torch.Tensor:
@@ -349,6 +392,17 @@ def twotower_embed(cfg: TwoTowerConfig, params: dict, batch: dict):
                _field_offsets([cfg.field_vocab] * cfg.n_item_fields,
                               batch["item_idx"].device), batch["item_idx"])
     return _user(cfg, params, batch["user_idx"]), i
+
+
+def twotower_loss(cfg: TwoTowerConfig, params: dict, batch: dict):
+    """In-batch sampled softmax with the logQ correction (Yi et al.,
+    RecSys'19): user_idx (B, Fu), item_idx (B, Fi), logq (B,), each column's
+    logQ subtracted from it.  Returns (loss, (B, B) f32 logits)."""
+    u, i = twotower_embed(cfg, params, batch)
+    logits = (u @ i.T).to(torch.float32) / cfg.temperature
+    logits = logits - batch["logq"][None, :]
+    diag = torch.arange(u.shape[0], device=logits.device)
+    return -torch.log_softmax(logits, -1)[diag, diag].mean(), logits
 
 
 def twotower_serve(cfg: TwoTowerConfig, params: dict, batch: dict):

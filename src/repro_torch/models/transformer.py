@@ -7,17 +7,23 @@ Parameters are the JAX package's pytree as a dict of tensors: per-layer
 weights stacked on a leading (L, ...) axis, run by a Python loop over the
 layers.  Serving is ``prefill`` (blockwise attention, returns the per-layer
 K/V) and ``decode_step`` (one token; ``flash_decode`` on the card, with
-the layer's window and soft-cap, the KV cache updated in place).  Not yet
-ported, and refused by ``check_supported``: the mesh fields (sharded MoE
-dispatch, 2D activation sharding, sequence-parallel attention); training
-(``lm_loss``) waits as well.
+the layer's window and soft-cap, the KV cache updated in place).
+Training is ``lm_loss``: ``forward`` with each layer under
+``torch.utils.checkpoint`` (``remat``, the JAX package's
+``jax.checkpoint`` of the layer body) and the sequence-chunked CE, whose
+logits exist for one ``ce_chunk`` of positions at a time (each chunk is
+recomputed in the backward pass too).  Not yet ported, and refused by
+``check_supported``: the mesh fields (sharded MoE dispatch, 2D activation
+sharding, sequence-parallel attention).
 """
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
+from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import attention_block
@@ -237,17 +243,24 @@ def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor):
 
 
 def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
-            positions=None, return_kv: bool = False):
+            positions=None, return_kv: bool = False, remat: bool = True):
     """tokens (B, S) -> final hidden (B, S, D), the MoE aux loss summed over
     the layers (an f32 scalar, 0 for a dense model) and, with
-    ``return_kv``, the stacked (L, B, S, Hkv, Dh) K and V for the cache."""
+    ``return_kv``, the stacked (L, B, S, Hkv, Dh) K and V for the cache.
+    With ``remat`` and gradients on, each layer keeps only its input for
+    the backward pass and is run again there."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
     aux = 0.0
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        x, (k, v), a = _layer(cfg, x, _layer_weights(params, i), i,
-                              positions=positions)
+        layer = partial(_layer, cfg, i=i, positions=positions)
+        lw = _layer_weights(params, i)
+        if remat and torch.is_grad_enabled():
+            x, (k, v), a = checkpoint(layer, x, lw, use_reentrant=False,
+                                      preserve_rng_state=False)
+        else:
+            x, (k, v), a = layer(x, lw)
         aux = aux + a
         if return_kv:
             ks.append(k)
@@ -261,6 +274,49 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
 def _unembed(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return softcap(h @ w, cfg.final_softcap)
+
+
+def _ce_chunk(cfg: LMConfig, params: dict, h: torch.Tensor,
+              labels: torch.Tensor, mask: torch.Tensor):
+    """(sum of the masked NLL, sum of the mask) over one chunk of positions,
+    from f32 logits."""
+    logits = _unembed(cfg, params, h).to(torch.float32)
+    logz = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    m = mask.to(torch.float32)
+    return ((logz - gold) * m).sum(), m.sum()
+
+
+def chunked_ce_loss(cfg: LMConfig, params: dict, h: torch.Tensor,
+                    labels: torch.Tensor, mask: torch.Tensor, *,
+                    remat: bool = True) -> torch.Tensor:
+    """Sequence-chunked CE over ``n = S // c`` chunks of ``c = min(ce_chunk,
+    S)`` positions: as in the JAX package, the last ``S % c`` positions are
+    left out.  With ``remat`` and gradients on, a chunk's logits are made
+    again in the backward pass, so that one chunk's exist at a time."""
+    s = h.shape[1]
+    c = min(cfg.ce_chunk, s)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(s // c):
+        part = (h[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c],
+                mask[:, i * c:(i + 1) * c])
+        if remat and torch.is_grad_enabled():
+            t, m = checkpoint(partial(_ce_chunk, cfg), params, *part,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            t, m = _ce_chunk(cfg, params, *part)
+        tot, cnt = tot + t, cnt + m
+    return tot / cnt.clamp_min(1.0)
+
+
+def lm_loss(cfg: LMConfig, params: dict, batch: dict, *, remat: bool = True):
+    """batch: tokens (B, S), labels (B, S) (already shifted), mask (B, S).
+    Returns (CE + aux_loss_weight * aux / n_layers, CE)."""
+    h, aux, _ = forward(cfg, params, batch["tokens"], remat=remat)
+    ce = chunked_ce_loss(cfg, params, h, batch["labels"], batch["mask"],
+                         remat=remat)
+    return ce + cfg.aux_loss_weight * aux / cfg.n_layers, ce
 
 
 # ------------------------------------------------------------------ serving

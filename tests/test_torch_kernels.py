@@ -33,8 +33,10 @@ from repro_torch.kernels.bitset_ops.ref import (bitset_reduce_batch_ref,
                                                bitset_reduce_ragged_ref)
 from repro_torch.kernels.csc_probe.ops import csc_partition_mask, host_seeds
 from repro_torch.kernels.csc_probe.ref import csc_probe_ref
-from repro_torch.kernels.embedding_bag.ops import embedding_bag_sum
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ops import (embedding_bag_backward,
+                                                   embedding_bag_sum)
+from repro_torch.kernels.embedding_bag.ref import (embedding_bag_backward_ref,
+                                                   embedding_bag_ref)
 from repro_torch.kernels.flash_decode.ops import (blocks_per_sm, flash_decode,
                                                   split_plan, window_start)
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
@@ -994,6 +996,29 @@ def test_cuda_embedding_bag_unaligned_table(cuda, d):
     torch.testing.assert_close(got, embedding_bag_ref(table, idx), **F32_TOL)
     torch.testing.assert_close(got, embedding_bag_sum(table.clone(), idx),
                                **F32_TOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("v,d,b,bag", [(39_000, 1, 4096, 39), (5000, 17, 77, 70),
+                                       (300, 33, 1, 5), (10, 1, 512, 39),
+                                       (100, 64, 0, 3)])
+def test_cuda_embedding_bag_backward_matches_plain(cuda, v, d, b, bag):
+    """The table's gradient against the plain index_add_, ids repeated
+    within and across bags (V 10 at B 512: every id many times); the
+    order of the atomics changes only the rounding (F32_TOL)."""
+    go = torch.from_numpy(_normal(v + b, b, d)).to(cuda)
+    idx = torch.from_numpy(np.random.default_rng(v).integers(
+        0, v, (b, bag)).astype(np.int32)).to(cuda)
+    before = embedding_bag_backward.launch_count
+    got = embedding_bag_backward(go, idx, v)
+    torch.cuda.synchronize()
+    assert embedding_bag_backward.launch_count == before + 1
+    torch.testing.assert_close(got, embedding_bag_backward_ref(go, idx, v),
+                               **F32_TOL)
+    table = torch.from_numpy(_normal(d, v, d)).to(cuda).requires_grad_(True)
+    embedding_bag_sum(table, idx).backward(go)
+    assert embedding_bag_backward.launch_count == before + 2
+    torch.testing.assert_close(table.grad, got, **F32_TOL)
 
 
 @pytest.mark.requires_cuda

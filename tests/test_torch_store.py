@@ -163,7 +163,13 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.models.moe, repro_torch.configs.gemma2_9b, "
             "repro_torch.configs.olmo_1b, repro_torch.configs.phi35_moe, "
             "repro_torch.configs.arctic_480b, "
-            "repro_torch.examples.serve_lm; "
+            "repro_torch.examples.serve_lm, repro_torch.tree, "
+            "repro_torch.optim, repro_torch.optim.adam, "
+            "repro_torch.optim.adafactor, repro_torch.optim.compress, "
+            "repro_torch.data, repro_torch.data.pipeline, "
+            "repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.launch.checkpoint, repro_torch.launch.elastic, "
+            "repro_torch.models.gnn, repro_torch.examples.train_lm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
