@@ -182,7 +182,23 @@ Phases (any failure raises, so the exit code is not 0):
      its loss falling over 3 timed steps; ``launch/train.py --arch
      xdeepfm`` (smoke config) 12 steps with checkpoints, ``--resume`` to
      16, its losses equal to a straight run's within 1e-5;
- 12. print the ``kernels`` JSON line (launch counts of each path, the
+ 12. the mesh runtime on a one-rank NCCL group (set up before phase 8)
+     and its (1, 1) ("data", "model") mesh, at published widths: (a)
+     phi3.5-moe's MoE layer (D 4,096, 16 experts, F 6,400, top-2, T
+     8,192, bf16 and f32), ``moe_ffn_sharded`` equal to ``moe_ffn`` bit
+     for bit, and its per-rank body at one logical rank an expert, the
+     partials summed as the combine sums them, within the bound stated at
+     ``mesh_moe``; (b) arctic-480b's attention core (56 / 8 heads, d_head
+     128, B 1 x S 4,096), ``seq_parallel_attention`` equal to
+     ``blockwise_attention`` bit for bit, and over 16 logical ranks within
+     one bf16 rounding; (c) ``compressed_psum`` of an olmo-1b
+     embedding-sized leaf through NCCL; (d) inside phase 8's arctic-480b
+     run, its prefill with every mesh field set equal to phase 8's logits
+     bit for bit; (e) phase 11's newest ``launch/train.py`` checkpoint
+     restored with ``shardings=`` onto the mesh, equal to a plain restore;
+     all in MESH_BUDGET_S;
+ 13. print the ``mesh`` JSON line (each check's error, limit and ms), the
+     ``kernels`` JSON line (launch counts of each path, the
      error against the plain versions, times and bounds, and the launch
      floor: one empty launch timed as every kernel is), then the result.
 
@@ -383,6 +399,22 @@ TRAIN_TERMS, N_LEFT_OUT_SAMPLE = ("error",), 32
 # launch/train.py at xDeepFM's smoke config: steps before and after the
 # resume, checkpoint cadence, and the resumed losses' relative tolerance
 RESUME_STEPS, RESUME_CKPT_EVERY, RESUME_RTOL = (12, 16), 5, 1e-5
+# phase 12: the mesh runtime on a one-rank NCCL group.  phi3.5-moe's MoE
+# layer (T tokens, D, E experts, F; top-2, capacity factor 1.25), each
+# expert also on a logical rank of its own; arctic-480b's attention core
+# (B, S, q heads, kv heads, d_head), its query rows also over MESH_RANKS
+# logical ranks; compressed_psum of an olmo-1b embedding-sized f32 leaf
+# (V, D); its budget
+MESH_MOE = (8192, 4096, 16, 6400)
+MESH_ATTN = (1, 4096, 56, 8, 128)
+MESH_RANKS = 16
+MESH_PSUM = (50_304, 2_048)
+MESH_BUDGET_S = 30.0
+MESH_LM = "arctic-480b"              # phase 8's run that holds check (d)
+# the MoE per-expert-rank partials in f32 against moe_ffn: max |diff| over
+# max |out|; compressed_psum's out + new error against the gradient (the
+# reference test's absolute tolerance)
+MESH_F32_RTOL, MESH_PSUM_ATOL = 1e-5, 1e-4
 
 
 def require(cond: bool, what: str) -> None:
@@ -1207,14 +1239,16 @@ def percentiles(np, ms) -> tuple[float, float]:
 
 # ---------------------------------------------------------------- phase 8
 def lm_path(torch, np, dev, counters, arch="llama3-8b", layers=None,
-            batch=LM_BATCH, prompt=LM_PROMPT, cfg=None) -> dict:
+            batch=LM_BATCH, prompt=LM_PROMPT, cfg=None, mesh=None) -> dict:
     """An LM arch's serving at full width (``layers`` of its layers kept,
     or all): prefill, greedy decode, and one decode step through
     ``flash_decode`` (with each layer's window and soft-cap) against the
     same step through the plain ``decode_attention``, with the readings
     of two planted faults of the kernel beside it (the dropped split's
     required to move the logits past the tolerance).  ``cfg`` replaces
-    the arch's config (a smoke config when rehearsing on the CPU)."""
+    the arch's config (a smoke config when rehearsing on the CPU).  With
+    ``mesh`` (phase 12's one-rank mesh), the prefill runs again with
+    every mesh field set and must give the same logits bit for bit."""
     from dataclasses import replace
 
     from repro_torch.configs import get_arch
@@ -1251,6 +1285,7 @@ def lm_path(torch, np, dev, counters, arch="llama3-8b", layers=None,
         cache_pref, logits = prefill(cfg, params, prompts)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
+        prefill_logits = logits
         cache = init_cache(cfg, b, s + LM_DECODE, device=dev)
         for n in ("k", "v"):
             cache[n][:, :, :s] = cache_pref[n]
@@ -1383,6 +1418,12 @@ def lm_path(torch, np, dev, counters, arch="llama3-8b", layers=None,
     del logits
     stage_s = dict(serve=t_checks - t_serve,
                    checks=time.perf_counter() - t_checks)
+    mesh_check = None
+    if mesh is not None:
+        t0 = time.perf_counter()
+        mesh_check = mesh_prefill(torch, cfg, params, prompts, mesh,
+                                  prefill_logits, prefill_s)
+        stage_s["mesh_prefill"] = time.perf_counter() - t0
     # device busy share of one decode step and of one prefill
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -1405,7 +1446,7 @@ def lm_path(torch, np, dev, counters, arch="llama3-8b", layers=None,
                tokens_differ=int(differ.sum()), launches=launches,
                step_profiled_ms=step_busy[0], step_busy_ms=step_busy[1],
                prefill_profiled_ms=prefill_busy[0],
-               prefill_busy_ms=prefill_busy[1],
+               prefill_busy_ms=prefill_busy[1], mesh_prefill=mesh_check,
                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
     print(f"lm {cfg.name} ({depth}): {n_params / 1e9:.3f}B params (init "
           f"{init_s:.1f} s)"
@@ -2430,14 +2471,15 @@ def lm_train_path(torch, np, dev, counters, pipe, cfg=None) -> dict:
     return out
 
 
-def train_resume_path(torch, np, dev, counters) -> dict:
+def train_resume_path(torch, np, dev, counters, keep=None) -> dict:
     """``launch/train.py --arch xdeepfm`` at its smoke config on the card:
     RESUME_STEPS[0] steps with a checkpoint every RESUME_CKPT_EVERY, then
     ``--resume`` to RESUME_STEPS[1], against one straight run of
     RESUME_STEPS[1] steps; the resumed losses within RESUME_RTOL of the
     straight ones (the backward's atomics order the wide term's sums
     differently from run to run).  Its checkpoints live under ``build/``
-    and are removed."""
+    and are removed; the resumed run's directory is first copied to
+    ``keep`` (phase 12 restores its newest checkpoint)."""
     from repro_torch.launch import train
 
     first_n, total = RESUME_STEPS
@@ -2456,6 +2498,8 @@ def train_resume_path(torch, np, dev, counters) -> dict:
                                       "--ckpt-dir", str(tmp / "resumed")])
         wall_s = time.perf_counter() - t0
         launches = read(counters)
+        if keep is not None:
+            shutil.copytree(tmp / "resumed", keep)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     require(straight["rc"] == first["rc"] == resumed["rc"] == 0,
@@ -2483,6 +2527,274 @@ def train_resume_path(torch, np, dev, counters) -> dict:
           flush=True)
     return dict(steps=total, resumed_from=first_n, loss_rel_err=err,
                 losses=straight["losses"], wall_s=wall_s, launches=launches)
+
+
+# --------------------------------------------------------------- phase 12
+def mesh_group(torch):
+    """Phase 12's one-rank NCCL group (a ``HashStore``: nothing leaves the
+    process) and its (1, 1) ("data", "model") mesh.  NCCL puts no two
+    ranks of one communicator on one device, so groups of more than one
+    rank are the CPU tests' (``gloo``, 4 ranks); here the collectives,
+    placements and per-rank bodies run on the card through NCCL itself.
+    The group is set up before phase 8, whose arctic-480b run holds check
+    (d), and destroyed after phase 12."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    # the card bound before the group, so that the communicator is made
+    # at once on it (its set-up time is then the group's)
+    card = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(card)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=card)
+    require(dist.get_backend() == "nccl",
+            f"phase 12's group runs {dist.get_backend()}, not nccl")
+    return make_host_mesh("cuda")
+
+
+def mesh_fields(cfg):
+    """Every mesh field of ``LMConfig`` on the one-rank mesh: activations
+    over ("data", "model"), sequence-parallel attention, the MoE expert-
+    parallel over "model" (expert_parallel 1; no FSDP axis: its all-gather
+    would copy arctic's 26.8 GB of expert weights a layer)."""
+    from dataclasses import replace
+
+    return replace(cfg, act_batch_axes=("data",), act_model_axis="model",
+                   attn_seq_parallel=True, moe_batch_axes=("data",),
+                   moe_expert_axis="model", moe_expert_parallel=1)
+
+
+def mesh_prefill(torch, cfg, params, prompts, mesh, want, plain_s) -> dict:
+    """Check (d): phase 8's prefill with every mesh field set, over the
+    one-rank mesh, against phase 8's prefill logits, bit for bit."""
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.models.transformer import prefill
+
+    with torch.inference_mode(), use_mesh(mesh):
+        t0 = time.perf_counter()
+        _, got = prefill(mesh_fields(cfg), params, prompts)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+    diff = float((got.float() - want.float()).abs().max())
+    require(torch.equal(got, want),
+            f"{cfg.name}'s prefill with the mesh fields differs from phase "
+            f"8's by {diff}")
+    print(f"mesh (d) {cfg.name} prefill {tuple(prompts.shape)} with every "
+          f"mesh field: logits equal phase 8's bit for bit; {mesh_s:.3f} s "
+          f"(phase 8's {plain_s:.3f} s)", flush=True)
+    return dict(max_abs_err=diff, limit=0.0, ms=mesh_s * 1e3,
+                plain_ms=plain_s * 1e3)
+
+
+def synced_ms(torch, fn):
+    """(result, ms) of one ``fn()`` on the host's clock to its synchronised
+    end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def mesh_moe(torch, dev, mesh, dtype) -> dict:
+    """Check (a) in ``dtype``: ``moe_ffn_sharded`` on the one-rank mesh
+    against ``moe_ffn`` (bit for bit), and the per-rank body at one
+    logical rank an expert, its partials summed in ``dtype`` as the
+    combine sums them, against ``moe_ffn``.
+
+    The bound in bf16: each token's output is its two routed experts'
+    weighted outputs c1 + c2.  ``moe_ffn`` sums them in f32 and rounds
+    once; the combine rounds each partial to bf16 (exact: c1 and c2 are
+    bf16 products) and sums in bf16.  So |diff| <= 2^-8 (|c1| + |c2|) +
+    2^-8 |out|: each term's and each side's last rounding, half a bf16
+    ulp (2^-8 relative) apiece.  In f32 the partials are summed in f32:
+    max |diff| <= MESH_F32_RTOL x max |out|."""
+    from repro_torch.models.moe import (capacity_of, moe_ffn,
+                                        moe_ffn_sharded, moe_local)
+
+    t, d, e, f = MESH_MOE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def normal(*shape, fan_in):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * fan_in ** -0.5).to(dtype)
+
+    x = normal(t, d, fan_in=1)
+    w = {"router": normal(d, e, fan_in=d), "w_gate": normal(e, d, f, fan_in=d),
+         "w_up": normal(e, d, f, fan_in=d), "w_down": normal(e, f, d, fan_in=f)}
+    kw = dict(n_experts=e, top_k=2, capacity_factor=1.25)
+    with torch.inference_mode():
+        (want, aux_want), plain_ms = synced_ms(
+            torch, lambda: moe_ffn(x, w, **kw))
+        (got, aux), ms = synced_ms(
+            torch, lambda: moe_ffn_sharded(x, w, mesh=mesh, **kw))
+        require(torch.equal(got, want) and torch.equal(aux, aux_want),
+                f"{dtype} moe_ffn_sharded on the one-rank mesh differs from "
+                f"moe_ffn by {float((got - want).abs().max())}")
+
+        # one token shard: the capacity that moe_ffn and the sharded
+        # dispatch both take at T tokens
+        cap = capacity_of(t, e, 2, 1.25)
+
+        def per_rank():
+            parts = [moe_local(x, w["router"], *(w[k][i:i + 1] for k in
+                                                 ("w_gate", "w_up", "w_down")),
+                               expert_index=i, n_experts=e, top_k=2,
+                               capacity=cap)[0]
+                     for i in range(MESH_RANKS)]
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p
+            return total, sum(p.float().abs() for p in parts)
+        (total, terms), rank_ms = synced_ms(torch, per_rank)
+    diff = (total.float() - want.float()).abs()
+    if dtype == torch.bfloat16:
+        bound = 2 ** -8 * (terms + want.float().abs())
+        ratio = float((diff / bound.clamp_min(1e-30)).max())
+        ok, limit = bool((diff <= bound).all()), "2^-8 (|c1| + |c2| + |out|)"
+    else:
+        ratio = float(diff.max()) / (MESH_F32_RTOL * float(want.abs().max()))
+        ok, limit = ratio <= 1.0, f"{MESH_F32_RTOL} max |out|"
+    require(ok, f"{dtype} MoE over {MESH_RANKS} logical expert ranks differs "
+            f"from moe_ffn past {limit} ({ratio} of it)")
+    name = str(dtype).replace("torch.", "")
+    print(f"mesh (a) phi3.5-moe layer {name} T {t} D {d} E {e} F {f}: "
+          f"sharded on the one-rank mesh == moe_ffn bit for bit "
+          f"({ms:.1f} ms, moe_ffn {plain_ms:.1f} ms); {MESH_RANKS} logical "
+          f"expert ranks summed in {name}: max |diff| "
+          f"{float(diff.max()):.4g}, {ratio:.3g} of the limit {limit} "
+          f"({rank_ms:.1f} ms)", flush=True)
+    return dict(max_abs_err=float(diff.max()), limit=limit,
+                limit_share=ratio, ms=ms, plain_ms=plain_ms,
+                per_rank_ms=rank_ms)
+
+
+def mesh_attention(torch, dev, mesh) -> dict:
+    """Check (b): ``seq_parallel_attention`` on the one-rank mesh against
+    ``blockwise_attention`` (bit for bit), and its query rows over
+    MESH_RANKS logical ranks (``blockwise_attention`` on each S /
+    MESH_RANKS rows with the rank's causal offset), concatenated, against
+    it.  A rank's 256 rows run as one query chunk where the unsharded call
+    runs 512, so its f32 products may be summed in another order: bit for
+    bit where they are not, else within one bf16 rounding of the output
+    (2^-8 |out| + 2^-8 |got|)."""
+    from repro_torch.models.attention import (blockwise_attention,
+                                              seq_parallel_attention)
+
+    b, s, hq, hkv, dh = MESH_ATTN
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn((b, s, h, dh), generator=gen, device=dev)
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    rows = s // MESH_RANKS
+    with torch.inference_mode():
+        want, plain_ms = synced_ms(torch, lambda: blockwise_attention(q, k, v))
+        got, ms = synced_ms(torch, lambda: seq_parallel_attention(
+            q, k, v, batch_axes=("data",), model_axis="model", mesh=mesh))
+        require(torch.equal(got, want), "seq_parallel_attention on the "
+                "one-rank mesh differs from blockwise_attention")
+        ranks, rank_ms = synced_ms(torch, lambda: torch.cat([
+            blockwise_attention(q[:, i * rows:(i + 1) * rows], k, v,
+                                q_offset=i * rows)
+            for i in range(MESH_RANKS)], 1))
+    diff = (ranks.float() - want.float()).abs()
+    bound = 2 ** -8 * (want.float().abs() + ranks.float().abs())
+    exact = bool(torch.equal(ranks, want))
+    require(bool((diff <= bound).all()),
+            f"seq-parallel attention over {MESH_RANKS} logical ranks differs "
+            f"from blockwise_attention past one bf16 rounding")
+    print(f"mesh (b) arctic-480b attention core B {b} S {s} {hq}/{hkv} heads: "
+          f"seq-parallel on the one-rank mesh == blockwise bit for bit "
+          f"({ms:.1f} ms, blockwise {plain_ms:.1f} ms); over {MESH_RANKS} "
+          f"logical ranks: {'bit for bit' if exact else 'max |diff| ' + format(float(diff.max()), '.4g')} "
+          f"({rank_ms:.1f} ms)", flush=True)
+    return dict(max_abs_err=float(diff.max()), bit_for_bit=exact,
+                limit="2^-8 (|out| + |got|)", ms=ms, plain_ms=plain_ms,
+                per_rank_ms=rank_ms)
+
+
+def mesh_psum(torch, dev, mesh) -> dict:
+    """Check (c): ``compressed_psum`` over the NCCL group: out + new error
+    gives back the gradient (``tests/test_runtime.py``'s check)."""
+    from repro_torch.launch.mesh import shard_map
+    from repro_torch.launch.shardings import P
+    from repro_torch.optim.compress import compressed_psum
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.randn(MESH_PSUM, generator=gen, device=dev)
+    fn = shard_map(lambda g, e: compressed_psum(g, e, "data", mesh=mesh),
+                   mesh=mesh, in_specs=(P(), P()), out_specs=(P(), P()))
+    with torch.inference_mode():
+        (out, err), ms = synced_ms(torch, lambda: fn(g, torch.zeros_like(g)))
+    diff = float((out + err - g).abs().max())
+    require(diff <= MESH_PSUM_ATOL, f"compressed_psum's out + error differs "
+            f"from the gradient by {diff}")
+    print(f"mesh (c) compressed_psum {MESH_PSUM} f32 over NCCL: max |out + "
+          f"err - g| {diff:.3g} (limit {MESH_PSUM_ATOL}); {ms:.1f} ms",
+          flush=True)
+    return dict(max_abs_err=diff, limit=MESH_PSUM_ATOL, ms=ms)
+
+
+def mesh_restore(torch, dev, mesh, ckpt_dir) -> dict:
+    """Check (e): the newest checkpoint of phase 11's ``launch/train.py
+    --arch xdeepfm`` run, restored with ``shardings=`` onto the card's
+    mesh (``recsys_param_spec`` placements), against a plain restore, bit
+    for bit."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import generator
+    from repro_torch.launch.checkpoint import CheckpointManager
+    from repro_torch.launch.shardings import recsys_param_spec, tree_shardings
+    from repro_torch.launch.steps import family_init
+    from repro_torch.optim.adam import init_adam
+    from repro_torch.tree import leaves
+
+    spec = get_arch("xdeepfm")
+    params = family_init(spec, smoke=True)(generator(0, dev))
+    like = (params, init_adam(params))
+    cm = CheckpointManager(str(ckpt_dir))
+    plain, step = cm.restore(like)
+    rule = recsys_param_spec(spec.smoke_config, spec.fsdp, mesh)
+    (placed, step2), ms = synced_ms(torch, lambda: cm.restore(
+        like, shardings=tree_shardings(like, rule, mesh)))
+    require(step == step2 == RESUME_STEPS[1] - 1,
+            f"restored steps {step} and {step2}")
+    pairs = list(zip(leaves(placed), leaves(plain), strict=True))
+    require(all(isinstance(a, DTensor) and a.device_mesh is mesh
+                for a, _ in pairs), "a restored leaf is not on the mesh")
+    full = [(a.full_tensor(), b) for a, b in pairs]
+    require(all(a.device.type == dev.type and torch.equal(a, b)
+                for a, b in full),
+            "a leaf restored onto the mesh differs from the plain restore")
+    print(f"mesh (e) xdeepfm checkpoint of step {step}: {len(pairs)} leaves "
+          f"restored onto the mesh equal the plain restore bit for bit; "
+          f"{ms:.1f} ms", flush=True)
+    return dict(max_abs_err=0.0, limit=0.0, ms=ms, leaves=len(pairs))
+
+
+def mesh_path(torch, dev, mesh, ckpt_dir, lm, setup_s) -> dict:
+    """Phase 12: checks (a)-(c) and (e) on the one-rank NCCL mesh; (d)
+    ran inside phase 8 (its result is ``lm``).  Its budget counts the
+    group's set-up (``setup_s``) and check (d) too."""
+    t0 = time.perf_counter()
+    out = {"moe_bf16": mesh_moe(torch, dev, mesh, torch.bfloat16)}
+    free(torch)
+    out["moe_f32"] = mesh_moe(torch, dev, mesh, torch.float32)
+    free(torch)
+    out["attention"] = mesh_attention(torch, dev, mesh)
+    out["compressed_psum"] = mesh_psum(torch, dev, mesh)
+    free(torch)
+    out["lm_prefill"] = lm
+    out["restore"] = mesh_restore(torch, dev, mesh, ckpt_dir)
+    wall_s = time.perf_counter() - t0 + setup_s + lm["ms"] / 1e3
+    require(wall_s <= MESH_BUDGET_S,
+            f"phase 12 took {wall_s:.1f} s (budget {MESH_BUDGET_S} s)")
+    print(f"mesh: phase 12 {wall_s:.1f} s with the group's set-up "
+          f"({setup_s:.1f} s) and check (d) (budget {MESH_BUDGET_S} s)",
+          flush=True)
+    return dict(out, wall_s=wall_s, setup_s=setup_s,
+                budget_s=MESH_BUDGET_S)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -4276,10 +4588,13 @@ def main() -> int:
     timed("phase 11a (the sketch-filtered corpus)")
     del seg
     free(torch)
+    t0 = time.perf_counter()
+    mesh = mesh_group(torch)
+    mesh_setup_s = time.perf_counter() - t0
     lm = {}
     for arch, layers, batch, prompt in LM_RUNS:
         lm[arch] = lm_path(torch, np, dev, counters, arch, layers, batch,
-                           prompt)
+                           prompt, mesh=mesh if arch == MESH_LM else None)
         paths[f"lm {arch}"] = lm[arch].pop("launches")
     timed("phase 8")
     rec = recsys_path(torch, np, dev, counters)
@@ -4294,11 +4609,21 @@ def main() -> int:
                  xdeepfm=xdeepfm_train_path(torch, np, dev, counters))
     train["olmo-1b"] = lm_train_path(torch, np, dev, counters, pipe)
     del pipe
-    train["resume"] = train_resume_path(torch, np, dev, counters)
-    for name, path in (("xdeepfm", "xdeepfm_train"), ("olmo-1b", "lm_train"),
-                       ("resume", "train_resume")):
-        paths[path] = train[name].pop("launches")
-    timed("phase 11")
+    tmp = Path(tempfile.mkdtemp(prefix="mesh-", dir=ROOT / "build"))
+    try:
+        train["resume"] = train_resume_path(torch, np, dev, counters,
+                                            keep=tmp / "ckpt")
+        for name, path in (("xdeepfm", "xdeepfm_train"),
+                           ("olmo-1b", "lm_train"),
+                           ("resume", "train_resume")):
+            paths[path] = train[name].pop("launches")
+        timed("phase 11")
+        meshed = mesh_path(torch, dev, mesh, tmp / "ckpt",
+                           lm[MESH_LM]["mesh_prefill"], mesh_setup_s)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.distributed.destroy_process_group()
+    timed("phase 12")
     for path, name in ([(f"lm {arch}", "flash_decode") for arch in lm]
                        + [("two_tower", "retrieval_score"),
                           ("xdeepfm", "embedding_bag"),
@@ -4357,6 +4682,7 @@ def main() -> int:
                           sharded=sharded["summary"],
                           csc=csc, log_search=hunt["stores"], lm=lm,
                           recsys=rec, archs=archs, train=train)))
+    print(json.dumps({"mesh": meshed}))
     print(json.dumps({"kernels": rows, "launch_floor_ms": floor_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,10 @@
 numpy has no bfloat16, so a bf16 leaf is stored as its bits (``uint16``)
 and each leaf's dtype is kept beside the leaves (``dtypes``): a restore is
 bit-identical.  ``restore(state_like)`` places each leaf on the device of
-``state_like``'s leaf.
+``state_like``'s leaf, or with ``shardings=`` on a mesh.  A checkpoint that
+the JAX package wrote has no ``dtypes``: each leaf then takes the dtype of
+``state_like``'s leaf, and a bf16 leaf (``np.savez`` writes it as 2-byte
+void, ``|V2``) is read as its bits.
 """
 from __future__ import annotations
 
@@ -41,7 +44,15 @@ def _to_host(x) -> tuple[np.ndarray, str]:
     return t.numpy(), str(t.dtype)
 
 
-def _from_host(a: np.ndarray, dtype: str, like) -> object:
+def _recorded(a: np.ndarray, like) -> str:
+    """The dtype name of a leaf that a checkpoint without ``dtypes`` holds:
+    the state's leaf's."""
+    if not isinstance(like, torch.Tensor):
+        return f"numpy.{a.dtype}"
+    return str(like.dtype)
+
+
+def _from_host(a: np.ndarray, dtype: str, like, sharding=None) -> object:
     if dtype.startswith("numpy."):
         return a
     if dtype == str(torch.bfloat16):
@@ -50,6 +61,9 @@ def _from_host(a: np.ndarray, dtype: str, like) -> object:
         t = torch.from_numpy(a.copy())
         if str(t.dtype) != dtype:
             raise ValueError(f"leaf stored as {t.dtype}, recorded {dtype}")
+    if sharding is not None:
+        from .shardings import place
+        return place(t, sharding)
     device = like.device if isinstance(like, torch.Tensor) else "cpu"
     return t.to(device)
 
@@ -128,20 +142,31 @@ class CheckpointManager:
         except OSError:
             return None
 
-    def restore(self, state_like, *, step: int | None = None):
+    def restore(self, state_like, *, step: int | None = None,
+                shardings=None):
         """(state of ``state_like``'s structure, its step), each leaf on
-        the device of ``state_like``'s leaf; (None, None) when there is no
-        checkpoint."""
+        the device of ``state_like``'s leaf, or, with ``shardings`` (a tree
+        of ``shardings.MeshPlacements`` matching the state, as
+        ``tree_shardings`` gives), a DTensor on its mesh (the elastic
+        re-mesh path); (None, None) when there is no checkpoint."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
         like = leaves(state_like)
+        places = ([None] * len(like) if shardings is None
+                  else leaves(shardings))
+        if len(places) != len(like):
+            raise ValueError(f"{len(places)} shardings for {len(like)} "
+                             f"leaves")
         with np.load(self._ckpt_path(step)) as data:
-            dtypes = [str(d) for d in data["dtypes"]]
-            if len(dtypes) != len(like):
-                raise ValueError(f"checkpoint of step {step} holds "
-                                 f"{len(dtypes)} leaves, the state "
-                                 f"{len(like)}")
-            new = [_from_host(data[f"leaf_{i}"], dtypes[i], x)
-                   for i, x in enumerate(like)]
+            n = sum(f.startswith("leaf_") for f in data.files)
+            if n != len(like):
+                raise ValueError(f"checkpoint of step {step} holds {n} "
+                                 f"leaves, the state {len(like)}")
+            arrays = [data[f"leaf_{i}"] for i in range(n)]
+            dtypes = ([str(d) for d in data["dtypes"]] if "dtypes" in
+                      data.files else
+                      [_recorded(a, x) for a, x in zip(arrays, like)])
+        new = [_from_host(a, d, x, s) for a, d, x, s in
+               zip(arrays, dtypes, like, places)]
         return unflatten(state_like, new), step

@@ -1,14 +1,14 @@
-"""Elastic scaling and failure handling: the parts that need no mesh.
+"""Elastic scaling and failure handling.
 
   * ``largest_mesh_for``: the largest (data, model) mesh the surviving
     devices support (the shape only),
+  * ``make_mesh_from_devices`` and ``remesh_state``: the mesh is a function
+    of the healthy ranks, and on node loss the state (the latest
+    checkpoint's full tensors) is re-sharded onto the new mesh,
   * ``StragglerMonitor``: a step longer than ``straggler_factor`` x the
     trailing median is flagged,
   * ``HealthState``: a registry of healthy devices that tests flip to
     simulate node loss.
-
-``make_mesh_from_devices`` and ``remesh_state`` build and re-shard onto a
-device mesh; they wait for the mesh and raise.
 """
 from __future__ import annotations
 
@@ -25,14 +25,33 @@ def largest_mesh_for(n_devices: int, model_parallel: int = 1):
     return (data, model_parallel)
 
 
-def make_mesh_from_devices(devices, shape, axis_names=("data", "model")):
-    raise NotImplementedError("make_mesh_from_devices (a device mesh) is "
-                              "not yet ported")
+def make_mesh_from_devices(ranks, shape, axis_names=("data", "model"), *,
+                           device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` over the first prod(shape) of
+    ``ranks``, laid out row-major.  The JAX package's "devices" are global
+    ranks of the default process group here, and every rank of that group
+    must call this (building a mesh creates its process groups), whether
+    or not it is in the mesh."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    n = int(np.prod(shape))
+    ranks = list(ranks)[:n]
+    if len(ranks) < n:
+        raise ValueError(f"a {tuple(shape)} mesh needs {n} ranks; "
+                         f"{len(ranks)} given")
+    grid = torch.tensor(ranks, dtype=torch.int64).reshape(tuple(shape))
+    return DeviceMesh(device_type, grid, mesh_dim_names=tuple(axis_names))
 
 
 def remesh_state(state_tree, spec_tree, new_mesh):
-    raise NotImplementedError("remesh_state (re-sharding onto a new mesh) "
-                              "is not yet ported")
+    """Re-shard a state tree (full tensors, numpy arrays or DTensors) onto
+    ``new_mesh`` (elastic shrink/grow): a DTensor of each leaf with its
+    spec's placements; ``spec_tree`` is a ``PartitionSpec`` tree matching
+    ``state_tree``."""
+    from .shardings import distribute_tree
+
+    return distribute_tree(state_tree, spec_tree, new_mesh)
 
 
 @dataclass

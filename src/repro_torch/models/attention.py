@@ -5,7 +5,8 @@ Prefill attention is computed blockwise: a loop over query chunks and,
 inside it, over KV chunks with a running (max, sum) online softmax, so the
 (S x S) scores never exist whole.  Decode attention on a CUDA tensor goes
 through the hand-written ``flash_decode`` kernel; ``decode_attention`` is
-its plain version and the path for CPU tensors.
+its plain version and the path for CPU tensors.  ``seq_parallel_attention``
+splits the query sequence over a mesh axis (``launch.mesh``).
 """
 from __future__ import annotations
 
@@ -119,8 +120,36 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, hq, d).to(q.dtype)
 
 
-def seq_parallel_attention(*args, **kwargs):
-    raise NotImplementedError("seq_parallel_attention is not yet ported")
+def seq_parallel_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, batch_axes, model_axis,
+                           causal: bool = True, window: int | None = None,
+                           attn_softcap: float | None = None,
+                           q_chunk: int = 512, kv_chunk: int = 1024,
+                           mesh=None) -> torch.Tensor:
+    """Sequence-parallel attention core, for archs whose head counts do not
+    divide the TP axis (arctic: 56 q / 8 kv heads against model=16), where
+    the core would otherwise run replicated on every model shard.
+
+    The QUERY sequence is split over ``model_axis`` and the batch over
+    ``batch_axes``; each rank gets the full K/V of its batch shard and runs
+    ``blockwise_attention`` on its S / model rows with the causal offset
+    ``rank_in_axis * S_local``.  ``mesh`` defaults to
+    ``launch.mesh.current_mesh()``."""
+    from ..launch.mesh import current_mesh, shard_map
+    from ..launch.shardings import P
+
+    mesh = mesh if mesh is not None else current_mesh()
+
+    def local(q_loc, k_loc, v_loc):
+        return blockwise_attention(
+            q_loc, k_loc, v_loc, causal=causal, window=window,
+            attn_softcap=attn_softcap, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            q_offset=mesh.get_local_rank(model_axis) * q_loc.shape[1])
+
+    kv = P(batch_axes, None, None, None)
+    return shard_map(local, mesh=mesh,
+                     in_specs=(P(batch_axes, model_axis, None, None), kv, kv),
+                     out_specs=P(batch_axes, model_axis, None, None))(q, k, v)
 
 
 def attention_block(x: torch.Tensor, w: dict, *, n_heads: int,
@@ -139,10 +168,9 @@ def attention_block(x: torch.Tensor, w: dict, *, n_heads: int,
     PLACE (the JAX version returns new caches from dynamic_update_slice)
     and (out, (k_cache, v_cache)) is returned.  The decode attention is
     ``flash_decode`` over ``cache_len + 1`` positions, with the layer's
-    window and soft-cap.
+    window and soft-cap.  ``seq_parallel`` = (batch axes, model axis):
+    prefill through ``seq_parallel_attention`` over the current mesh.
     """
-    if seq_parallel is not None:
-        raise NotImplementedError("seq_parallel attention is not yet ported")
     b, s, _ = x.shape
     q = (x @ w["wq"]).reshape(b, s, n_heads, d_head)
     k = (x @ w["wk"]).reshape(b, s, n_kv_heads, d_head)
@@ -154,9 +182,16 @@ def attention_block(x: torch.Tensor, w: dict, *, n_heads: int,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if kv_cache is None:
-        out = blockwise_attention(q, k, v, causal=causal, window=window,
-                                  attn_softcap=attn_softcap,
-                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
+        if seq_parallel is not None:
+            bd, ma = seq_parallel
+            out = seq_parallel_attention(
+                q, k, v, batch_axes=bd, model_axis=ma, causal=causal,
+                window=window, attn_softcap=attn_softcap, q_chunk=q_chunk,
+                kv_chunk=kv_chunk)
+        else:
+            out = blockwise_attention(q, k, v, causal=causal, window=window,
+                                      attn_softcap=attn_softcap,
+                                      q_chunk=q_chunk, kv_chunk=kv_chunk)
         new_kv = (k, v)
     else:
         k_cache, v_cache = kv_cache

@@ -20,7 +20,7 @@ from ..optim.adafactor import AdafactorState
 from ..optim.adam import AdamState
 from .gnn import GNNConfig, _mlp_sizes
 from .recsys import MINDConfig, SASRecConfig, TwoTowerConfig, XDeepFMConfig
-from .transformer import LMConfig, check_supported
+from .transformer import LMConfig
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -61,7 +61,6 @@ def lm_params_from_numpy(cfg: LMConfig, tree: dict, device=None) -> dict:
     """An LM's pytree (``transformer.init_params`` keys: the post-norms
     with ``post_norm``, ``moe`` in place of ``mlp`` for an MoE model, and
     ``dense`` beside it with ``dense_residual``)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     n, d, dh = cfg.n_layers, cfg.d_model, cfg.head_dim
     layer_shapes = {"wq": (n, d, cfg.n_heads * dh),

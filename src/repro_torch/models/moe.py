@@ -9,8 +9,9 @@ token's outputs come back weighted by their renormalised gates, summed in
 float32.  The expert products are ``torch`` matrix products: the JAX
 package computes them outside any Pallas kernel too.
 
-The expert-parallel ``moe_ffn_sharded`` needs a mesh and is not yet
-ported.
+``moe_ffn_sharded`` is the expert-parallel dispatch over a mesh
+(``launch.mesh``): each rank runs ``moe_local`` on its token shard and its
+block of experts, and the partial outputs are summed over the expert axis.
 """
 from __future__ import annotations
 
@@ -37,51 +38,125 @@ def moe_ffn(x: torch.Tensor, w: dict, *, n_experts: int, top_k: int,
             act=torch.nn.functional.silu):
     """x (T, D) tokens; w: router (D, E), w_gate / w_up (E, D, F), w_down
     (E, F, D).  Returns (out (T, D) in x's dtype, the Switch load-balance
-    aux loss as an f32 scalar)."""
-    t, d = x.shape
-    e = n_experts
-    capacity = capacity_of(t, e, top_k, capacity_factor)
-    dev = x.device
+    aux loss as an f32 scalar): ``moe_local`` with every expert in one
+    block."""
+    return moe_local(x, w["router"], w["w_gate"], w["w_up"], w["w_down"],
+                     expert_index=0, n_experts=n_experts, top_k=top_k,
+                     capacity=capacity_of(x.shape[0], n_experts, top_k,
+                                          capacity_factor), act=act)
 
-    logits = (x @ w["router"]).to(torch.float32)           # (T, E)
+
+def moe_local(xs: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
+              wu: torch.Tensor, wd: torch.Tensor, *, expert_index: int,
+              n_experts: int, top_k: int, capacity: int,
+              act=torch.nn.functional.silu):
+    """The dispatch of tokens ``xs`` (T, D) into one block of experts: the
+    whole router (D, E) and the block's ``E_local`` experts (``wg``/``wu``
+    (E_local, D, F), ``wd`` (E_local, F, D)), the ``expert_index``-th block
+    of E / E_local, ``capacity`` slots an expert.
+
+    Every token is routed (the router is replicated), only this block's
+    experts are dispatched: a stable sort of the routed (token, k) pairs
+    by local expert, with pairs for other blocks' experts in a drop
+    bucket.  Returns (the block's partial output (T, D) in x's dtype, the
+    Switch aux loss of these tokens, f32)."""
+    tl, d = xs.shape
+    e_local = wg.shape[0]
+    dev = xs.device
+
+    logits = (xs @ router).to(torch.float32)               # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate, idx = top_k_lower_first(probs, top_k)            # (T, K)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # load-balance aux loss (Switch): E * mean(frac_tokens * frac_probs)
     me = probs.mean(0)
-    ce = torch.nn.functional.one_hot(idx[:, 0], e).to(torch.float32).mean(0)
-    aux = e * (me * ce).sum()
+    ce = torch.nn.functional.one_hot(idx[:, 0], n_experts).to(
+        torch.float32).mean(0)
+    aux = n_experts * (me * ce).sum()
 
-    # sort dispatch: each routed token's slot in its expert's queue
-    flat_e = idx.reshape(-1)                               # (T*K,)
-    flat_t = torch.arange(t, device=dev).repeat_interleave(top_k)
-    order = torch.argsort(flat_e, stable=True)
-    se, st = flat_e[order], flat_t[order]
-    start = torch.searchsorted(se, torch.arange(e, device=dev))
-    pos_in_e = torch.arange(se.numel(), device=dev) - start[se]
-    keep = pos_in_e < capacity
-    dest = torch.where(keep, se * capacity + pos_in_e, e * capacity)
+    # sort dispatch: each routed pair's slot in its local expert's queue;
+    # e_local is the drop bucket of the other blocks' experts
+    flat_t = torch.arange(tl, device=dev).repeat_interleave(top_k)
+    rel = idx.reshape(-1) - expert_index * e_local
+    le = torch.where((rel >= 0) & (rel < e_local), rel, e_local)
+    order = torch.argsort(le, stable=True)
+    se, st = le[order], flat_t[order]
+    start = torch.searchsorted(se, torch.arange(e_local + 1, device=dev))
+    pos = torch.arange(se.numel(), device=dev) - start[se]
+    keep = (se < e_local) & (pos < capacity)
+    dest = torch.where(keep, se * capacity + pos, e_local * capacity)
 
-    buf = torch.zeros((e * capacity + 1, d), dtype=x.dtype, device=dev)
-    buf[dest] = x[st]                  # dropped tokens land on the last row
-    buf = buf[:-1].reshape(e, capacity, d)                 # (E, C, D)
+    buf = torch.zeros((e_local * capacity + 1, d), dtype=xs.dtype, device=dev)
+    buf = buf.index_put((dest,), xs[st])   # dropped pairs land on the last row
+    buf = buf[:-1].reshape(e_local, capacity, d)           # (E_local, C, D)
 
-    h = torch.bmm(buf, w["w_gate"])
-    u = torch.bmm(buf, w["w_up"])
-    y = torch.bmm(act(h) * u, w["w_down"])                 # (E, C, D)
+    h = torch.bmm(buf, wg)
+    u = torch.bmm(buf, wu)
+    y = torch.bmm(act(h) * u, wd)                          # (E_local, C, D)
 
     # combine back to token order, in f32
-    y_flat = y.reshape(e * capacity, d)
+    y_flat = y.reshape(e_local * capacity, d)
     gathered = torch.where(keep[:, None],
-                           y_flat[dest.clamp(0, e * capacity - 1)], 0.0)
+                           y_flat[dest.clamp(0, e_local * capacity - 1)], 0.0)
     sg = gate.reshape(-1)[order]
     contrib = gathered * sg[:, None].to(gathered.dtype)
-    out = torch.zeros((t, d), dtype=torch.float32, device=dev)
-    out.index_add_(0, st, contrib.to(torch.float32))
-    return out.to(x.dtype), aux
+    out = torch.zeros((tl, d), dtype=torch.float32, device=dev)
+    out = out.index_add(0, st, contrib.to(torch.float32))
+    return out.to(xs.dtype), aux
 
 
-def moe_ffn_sharded(*args, **kwargs):
-    raise NotImplementedError("moe_ffn_sharded (expert-parallel dispatch over "
-                              "a mesh) is not yet ported")
+def moe_ffn_sharded(x: torch.Tensor, w: dict, *, n_experts: int, top_k: int,
+                    capacity_factor: float = 1.25,
+                    act=torch.nn.functional.silu, batch_axes=("data",),
+                    expert_axis="model", fsdp_axis=None,
+                    expert_parallel: int | None = None, mesh=None):
+    """Expert-parallel MoE over a mesh: ``moe_local`` on each rank.
+
+    Layout contract (the JAX package's):
+      x        (T, D)    sharded P(batch_axes, None)
+      router   (D, E)    replicated
+      w_gate/up(E, D, F) sharded P(expert_axis, fsdp_axis, None)
+      w_down   (E, F, D) sharded P(expert_axis, None, fsdp_axis)
+
+    Rank (d, m) holds token shard d (replicated over m) and expert block m.
+    The only collectives are the FSDP all-gather of the expert weights over
+    ``fsdp_axis`` and one sum over the expert axis for the combine, in the
+    compute dtype (top-2 partial sums a token: bf16 rounding of two-term
+    sums is standard EP practice).  Capacity and the aux loss are per
+    token shard (at least 4 slots an expert); ``aux`` is averaged over
+    ``batch_axes``.  ``mesh``
+    defaults to ``launch.mesh.current_mesh()``; ``expert_parallel`` to the
+    expert axis' size.  Returns (out (T, D), aux)."""
+    from ..launch.mesh import (all_gather, axis_size, current_mesh, pmean,
+                               psum, shard_map)
+    from ..launch.shardings import P
+
+    mesh = mesh if mesh is not None else current_mesh()
+    m_size = (expert_parallel if expert_parallel is not None
+              else axis_size(mesh, expert_axis))
+    e_local = n_experts // m_size
+    if e_local * m_size != n_experts:
+        raise ValueError(f"{n_experts} experts over {m_size} expert ranks")
+
+    def local(xs, router, wg, wu, wd):
+        if fsdp_axis is not None:
+            wg = all_gather(wg, fsdp_axis, 1, mesh)
+            wu = all_gather(wu, fsdp_axis, 1, mesh)
+            wd = all_gather(wd, fsdp_axis, 2, mesh)
+        tl = xs.shape[0]
+        capacity = min(max(capacity_of(tl, n_experts, top_k,
+                                       capacity_factor), 4), tl)
+        out, aux = moe_local(xs, router, wg, wu, wd,
+                             expert_index=mesh.get_local_rank(expert_axis),
+                             n_experts=n_experts, top_k=top_k,
+                             capacity=capacity, act=act)
+        return psum(out, expert_axis, mesh), pmean(aux, batch_axes, mesh)
+
+    xp = P(batch_axes, None)
+    wg_spec = P(expert_axis, fsdp_axis, None)
+    wd_spec = P(expert_axis, None, fsdp_axis)
+    return shard_map(local, mesh=mesh,
+                     in_specs=(xp, P(None, None), wg_spec, wg_spec, wd_spec),
+                     out_specs=(xp, P()))(
+        x, w["router"], w["w_gate"], w["w_up"], w["w_down"])

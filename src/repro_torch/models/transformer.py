@@ -12,9 +12,18 @@ Training is ``lm_loss``: ``forward`` with each layer under
 ``torch.utils.checkpoint`` (``remat``, the JAX package's
 ``jax.checkpoint`` of the layer body) and the sequence-chunked CE, whose
 logits exist for one ``ce_chunk`` of positions at a time (each chunk is
-recomputed in the backward pass too).  Not yet ported, and refused by
-``check_supported``: the mesh fields (sharded MoE dispatch, 2D activation
-sharding, sequence-parallel attention).
+recomputed in the backward pass too).
+
+The mesh fields run over ``launch.mesh.current_mesh()`` (``use_mesh``):
+``moe_expert_axis`` sends the FFN through the expert-parallel
+``moe_ffn_sharded``; ``attn_seq_parallel`` with both act axes sends prefill
+and training attention through ``seq_parallel_attention``.  The residual
+stream is a plain global tensor, the same on every rank, so the JAX
+package's activation layout hints (``_constrain_act``) have no counterpart:
+they change no value.  Decode is unchanged: it never takes the
+sequence-parallel core.  The JAX package's
+model-sharded norm (``_norm_sharded``) computes the same norm from per-shard
+partial sums; here the norm is computed on the whole d_model.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ from ..device import resolve_device
 from .attention import attention_block
 from .layers import (dense_init, embed_init, layer_norm_nonparam, normal,
                      rms_norm, softcap, torch_dtype)
-from .moe import moe_ffn
+from .moe import moe_ffn, moe_ffn_sharded
 
 
 @dataclass(frozen=True)
@@ -116,19 +125,10 @@ class LMConfig:
         return self.n_layers * (attn + ffn) + emb
 
 
-def check_supported(cfg: LMConfig) -> None:
-    """Raise for the parts of the LM family the port does not run yet: the
-    mesh fields."""
-    if (cfg.act_batch_axes or cfg.act_model_axis or cfg.moe_expert_axis
-            or cfg.moe_batch_axes or cfg.attn_seq_parallel):
-        raise NotImplementedError(f"{cfg.name}: mesh fields not yet ported")
-
-
 # --------------------------------------------------------------------- init
 def init_params(cfg: LMConfig, gen: torch.Generator) -> dict:
     """Stacked-layer parameters on the generator's device, drawn from it:
     N(0, 1/fan_in) projections, N(0, 1) embeddings, zero norm weights."""
-    check_supported(cfg)
     dt, dev = cfg.compute_dtype, gen.device
     d, dh, n = cfg.d_model, cfg.head_dim, cfg.n_layers
 
@@ -186,12 +186,21 @@ def _swiglu(x: torch.Tensor, w: dict) -> torch.Tensor:
 
 def _ffn(cfg: LMConfig, x: torch.Tensor, lw: dict):
     """The FFN sub-layer: (y, MoE aux loss: an f32 scalar tensor, 0.0 for a
-    dense layer)."""
+    dense layer).  With ``moe_expert_axis`` the MoE runs expert-parallel
+    over the current mesh."""
     if not cfg.is_moe:
         return _swiglu(x, lw["mlp"]), 0.0
     b, s, d = x.shape
-    y, aux = moe_ffn(x.reshape(b * s, d), lw["moe"], n_experts=cfg.n_experts,
-                     top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.top_k,
+              capacity_factor=cfg.capacity_factor)
+    if cfg.moe_expert_axis is not None:
+        y, aux = moe_ffn_sharded(
+            x.reshape(b * s, d), lw["moe"],
+            batch_axes=cfg.moe_batch_axes or ("data",),
+            expert_axis=cfg.moe_expert_axis, fsdp_axis=cfg.moe_fsdp_axis,
+            expert_parallel=cfg.moe_expert_parallel, **kw)
+    else:
+        y, aux = moe_ffn(x.reshape(b * s, d), lw["moe"], **kw)
     y = y.reshape(b, s, d)
     if cfg.dense_residual:
         y = y + _swiglu(x, lw["dense"])
@@ -217,15 +226,21 @@ def _layer(cfg: LMConfig, x: torch.Tensor, lw: dict, i: int, *,
     """Block ``i``: with local/global alternation a local layer attends
     within ``cfg.sliding_window`` and a global one over the whole cache (the
     JAX package's window of 1 << 30 masks nothing); without it every layer
-    takes the window.  Returns (x', new_kv, MoE aux loss)."""
+    takes the window.  With ``attn_seq_parallel`` and both act axes,
+    prefill attention is sequence-parallel.  Returns (x', new_kv, MoE aux
+    loss)."""
     window = layer_window(cfg, i)
+    seq_par = None
+    if cfg.attn_seq_parallel and kv_cache is None \
+            and cfg.act_batch_axes and cfg.act_model_axis:
+        seq_par = (cfg.act_batch_axes, cfg.act_model_axis)
     a, new_kv = attention_block(
         _norm(cfg, x, lw["ln_attn"]), lw, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, d_head=cfg.head_dim,
         rope_theta=cfg.rope_theta, window=window,
         attn_softcap=cfg.attn_softcap, positions=positions,
         kv_cache=kv_cache, cache_len=cache_len, q_chunk=cfg.q_chunk,
-        kv_chunk=cfg.kv_chunk)
+        kv_chunk=cfg.kv_chunk, seq_parallel=seq_par)
     if cfg.post_norm:
         a = _norm(cfg, a, lw["ln_attn_post"])
     x = x + a
@@ -249,7 +264,6 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
     ``return_kv``, the stacked (L, B, S, Hkv, Dh) K and V for the cache.
     With ``remat`` and gradients on, each layer keeps only its input for
     the backward pass and is run again there."""
-    check_supported(cfg)
     x = _embed(cfg, params, tokens)
     aux = 0.0
     ks, vs = [], []
@@ -341,7 +355,6 @@ def decode_step(cfg: LMConfig, params: dict, cache: dict,
     Dh) tensors; ``cache_len`` (an int) valid positions.  The new token's
     K/V is written into ``cache`` in place, at ``cache_len``.  Returns
     (cache, next tokens (B,) int32, f32 logits (B, V))."""
-    check_supported(cfg)
     x = _embed(cfg, params, tokens[:, None])
     for i in range(cfg.n_layers):
         x, _, _ = _layer(cfg, x, _layer_weights(params, i), i,

@@ -1,14 +1,14 @@
 """The port's copies of ``examples/quickstart.py``, ``batched_query.py``,
-``tail_ingest.py``, ``distributed_query.py`` and ``serve_lm.py`` run end to
-end on the CPU at a tiny size, and their checks of their own answers
-hold."""
+``tail_ingest.py``, ``distributed_query.py``, ``serve_lm.py`` and
+``log_search.py`` run end to end on the CPU at a tiny size, and their checks
+of their own answers hold."""
 import os
 import subprocess
 import sys
 from pathlib import Path
 
-from repro_torch.examples import (batched_query, quickstart, serve_lm,
-                                  tail_ingest)
+from repro_torch.examples import (batched_query, log_search, quickstart,
+                                  serve_lm, tail_ingest)
 
 
 def test_quickstart_runs_on_cpu(capsys):
@@ -20,6 +20,14 @@ def test_quickstart_runs_on_cpu(capsys):
     assert "crashed mid-ingest; recovered" in out and "finished=False" in out
     assert "served 24 queries from 8 clients in " in out
     assert "answers match direct queries: True" in out
+
+
+def test_log_search_finds_the_planted_lines_in_every_store(capsys):
+    assert log_search.main(["--device", "cpu", "--n-lines", "4000"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert [ln.split()[0] for ln in out] == ["dynawarp", "csc", "lucene",
+                                             "bloom", "scan"]
+    assert all(" found 3 attacks" in ln for ln in out)
 
 
 def test_batched_query_runs_on_cpu(capsys):

@@ -295,27 +295,6 @@ def test_lm_decode_matches_prefill_of_the_longer_prompt(arch):
     _decode_matches_longer_prefill(cfg, pp)
 
 
-@pytest.mark.parametrize("change", [
-    dict(act_batch_axes=("data",)), dict(act_model_axis="model"),
-    dict(moe_expert_axis="model"), dict(moe_batch_axes=("data",)),
-    dict(attn_seq_parallel=True), "seq_parallel_attention",
-    "moe_ffn_sharded"])
-def test_unported_lm_features_raise(change):
-    """Only the mesh fields (and the functions that need a mesh) wait."""
-    if change == "seq_parallel_attention":
-        with pytest.raises(NotImplementedError):
-            pa.seq_parallel_attention()
-        return
-    if change == "moe_ffn_sharded":
-        with pytest.raises(NotImplementedError):
-            pm.moe_ffn_sharded()
-        return
-    cfg = get_arch("phi3.5-moe-42b-a6.6b").smoke_config
-    with pytest.raises(NotImplementedError, match="mesh fields"):
-        ptf.init_params(replace(cfg, **change),
-                        torch.Generator().manual_seed(0))
-
-
 # ------------------------------------------------------------------ recsys
 def test_two_tower_retrieval_and_serve_match_reference():
     tree = _numpy_params("two-tower-retrieval", 6)

@@ -195,8 +195,6 @@ def test_int8_quantizers_match_reference(dtype):
                                atol=1e-6)
     fb = pcq.init_error_feedback({"a": xt, "b": [et]})
     assert all(t.dtype == torch.float32 and not t.any() for t in leaves(fb))
-    with pytest.raises(NotImplementedError):
-        pcq.compressed_psum(xt, et, "pod")
 
 
 # ------------------------------------------------ the embedding-bag gradient
