@@ -197,10 +197,26 @@ Phases (any failure raises, so the exit code is not 0):
      bit for bit; (e) phase 11's newest ``launch/train.py`` checkpoint
      restored with ``shardings=`` onto the mesh, equal to a plain restore;
      all in MESH_BUDGET_S;
- 13. print the ``mesh`` JSON line (each check's error, limit and ms), the
-     ``kernels`` JSON line (launch counts of each path, the
-     error against the plain versions, times and bounds, and the launch
-     floor: one empty launch timed as every kernel is), then the result.
+ 13. the dry run and the host extraction: (a) in a subprocess started
+     after the build (it uses no card memory, and phase 12 holds the
+     default process group), ``launch/dryrun.py`` traces phase 11's two
+     steps at phase 11's cuts on a one-rank (1, 1) fake mesh, and each
+     predicted ``live_bytes`` must lie within DRYRUN_LIVE_RTOL of the
+     step's own peak that phase 11 measured (``max_memory_allocated``
+     over one timed step, the peak reset after the warm one, less what
+     the script held beside the step's arguments); (b) the
+     same subprocess runs PHASE13_CELL on the production 16 x 16 mesh
+     (256 fake ranks) to status ``ok``, all in PHASE13_BUDGET_S; (c) on
+     phase 4's store (before phase 8), one term wave and one contains
+     wave through a ``QueryEngine(extract_on_device=False)``: their
+     candidates equal phase 4's bit for bit, ``sketch_probe``,
+     ``token_hash`` and ``bitset_ops`` launched as in device mode and
+     ``bitmap_extract`` not at all;
+ 14. print the ``mesh`` JSON line (each check's error, limit and ms), the
+     ``dryrun`` JSON line, the ``kernels`` JSON line (launch counts of each
+     path, the error against the plain versions, times and bounds, and the
+     launch floor: one empty launch timed as every kernel is), then the
+     result.
 
 Each path's launch counts are set to 0 just before it and read just
 after; the launches that compare a kernel with its plain version fall
@@ -415,6 +431,12 @@ MESH_LM = "arctic-480b"              # phase 8's run that holds check (d)
 # max |out|; compressed_psum's out + new error against the gradient (the
 # reference test's absolute tolerance)
 MESH_F32_RTOL, MESH_PSUM_ATOL = 1e-5, 1e-4
+# phase 13: the dry run's predicted live bytes of phase 11's steps against
+# their measured peaks (relative), the production cell it runs, and the
+# subprocess's budget
+DRYRUN_LIVE_RTOL = 0.25
+PHASE13_CELL = ("olmo-1b", "decode_32k")
+PHASE13_BUDGET_S = 90.0
 
 
 def require(cond: bool, what: str) -> None:
@@ -2200,10 +2222,26 @@ def drop_duplicates(torch):
 def step_times(torch, np, step, params, opt, batches, counters):
     """One warm step on ``batches[0]``, then one timed step a batch of
     ``batches[1:]`` (host clock to its synchronised end), the launch counts
-    read around the timed steps.  Returns (params, opt, ms, losses,
-    launches)."""
+    read around the timed steps.  The path's peak so far (``path_peak``:
+    since the caller's reset, its checks and the warm step included) is
+    read, then the peak is reset after the warm step and read after the
+    first timed one (``peak``).  Its ``own`` reading is that
+    peak less what was allocated before the step besides the step's
+    arguments (parameters, optimizer state, batch): what the step itself
+    holds at its peak, its arguments included, whatever the script still
+    holds from earlier phases (phase 13 holds the dry run's prediction to
+    it).  Returns (params, opt, ms, losses, launches, memory readings in
+    bytes)."""
+    from repro_torch.tree import leaves
+
     params, opt, m = step(params, opt, batches[0])
     losses = [float(m["loss"])]
+    torch.cuda.synchronize()
+    path_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mem = dict(path_peak=path_peak, before=torch.cuda.memory_allocated(),
+               arguments=sum(t.numel() * t.element_size() for t in
+                             leaves((params, opt, batches[1]))))
     reset(counters)
     ms = []
     for bt in batches[1:]:
@@ -2211,7 +2249,10 @@ def step_times(torch, np, step, params, opt, batches, counters):
         params, opt, m = step(params, opt, bt)
         losses.append(float(m["loss"]))
         ms.append((time.perf_counter() - t0) * 1e3)
-    return params, opt, ms, losses, read(counters)
+        if "peak" not in mem:
+            mem["peak"] = torch.cuda.max_memory_allocated()
+            mem["own"] = mem["peak"] - (mem["before"] - mem["arguments"])
+    return params, opt, ms, losses, read(counters), mem
 
 
 def xdeepfm_train_path(torch, np, dev, counters, cfg=None,
@@ -2328,8 +2369,8 @@ def xdeepfm_train_path(torch, np, dev, counters, cfg=None,
 
     # ------------------------------------------------------ timed steps
     t0 = time.perf_counter()
-    params, opt, ms, losses, launches = step_times(torch, np, step, params,
-                                                   opt, batches, counters)
+    params, opt, ms, losses, launches, step_mem = step_times(
+        torch, np, step, params, opt, batches, counters)
     steps_s = time.perf_counter() - t0
     for name in ("embedding_bag", "embedding_bag_backward"):
         require(launches[name] == TRAIN_STEPS * XDEEPFM_MICRO,
@@ -2338,13 +2379,15 @@ def xdeepfm_train_path(torch, np, dev, counters, cfg=None,
     require(all(np.isfinite(losses)), "xDeepFM's loss is not finite")
     top = []
     busy = device_busy(torch, lambda: step(params, opt, batches[1]), top=top)
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the path's peak since its init, as before the reset in step_times
+    peak = max(step_mem["path_peak"], torch.cuda.max_memory_allocated()) / 1e9
     p50, p99 = percentiles(np, ms)
     out = dict(rows=cfg.total_vocab, embed_dim=cfg.embed_dim, batch=b,
                microbatches=XDEEPFM_MICRO, steps=TRAIN_STEPS, init_s=init_s,
                check_s=check_s, steps_s=steps_s,
                step_ms_p50=p50, step_ms_p99=p99, rows_per_s=b / p50 * 1e3,
-               peak_gb=peak, losses=losses, repeated_ids=repeated,
+               peak_gb=peak, step_memory=step_mem, losses=losses,
+               repeated_ids=repeated,
                loss_rel_err=loss_err, grad_rel_err=dict(zip(names, grad_err)),
                wide_fault=fault, step_loss_rel_err=step_loss_err,
                step_param_reading=param_err, profiled_ms=busy[0],
@@ -2359,7 +2402,10 @@ def xdeepfm_train_path(torch, np, dev, counters, cfg=None,
           f"one step: loss {step_loss_err:.3g}, parameters {param_err:.3g} "
           f"of the limit; {TRAIN_STEPS} steps p50 {p50:.1f} ms p99 "
           f"{p99:.1f} ms ({b / p50 * 1e3:,.0f} rows/s), losses "
-          f"{[round(x, 5) for x in losses]}, peak {peak:.2f} GB; device busy "
+          f"{[round(x, 5) for x in losses]}, peak {peak:.2f} GB (one step "
+          f"{step_mem['own'] / 1e9:.2f} GB its own, "
+          f"{(step_mem['before'] - step_mem['arguments']) / 1e9:.2f} GB held "
+          f"beside it); device busy "
           f"per step {busy_text(*busy)} ({top_text(top)}); init "
           f"{init_s:.1f} s, checks {check_s:.1f} s, warm and timed steps "
           f"{steps_s:.1f} s; launches {launches}", flush=True)
@@ -2435,7 +2481,7 @@ def lm_train_path(torch, np, dev, counters, pipe, cfg=None) -> dict:
     t0 = time.perf_counter()
     opt = steps._init_opt(spec, steps.make_optimizer(spec)[0], params)
     step = steps.make_train_step(spec, shape)
-    params, opt, ms, losses, launches = step_times(
+    params, opt, ms, losses, launches, step_mem = step_times(
         torch, np, step, params, opt, [fixed] * (1 + LM_TRAIN_STEPS),
         counters)
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -2443,14 +2489,16 @@ def lm_train_path(torch, np, dev, counters, pipe, cfg=None) -> dict:
     steps_s = time.perf_counter() - t0
     top = []
     busy = device_busy(torch, lambda: step(params, opt, fixed), top=top)
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the path's peak since its init, as before the reset in step_times
+    peak = max(step_mem["path_peak"], torch.cuda.max_memory_allocated()) / 1e9
     p50, p99 = percentiles(np, ms)
     tokens = pipe.batch * pipe.seq
     out = dict(params=n_params, batch=pipe.batch, seq=pipe.seq,
                steps=LM_TRAIN_STEPS, init_s=init_s, check_s=check_s,
                steps_s=steps_s, step_s_p50=p50 / 1e3,
                step_s_p99=p99 / 1e3, tokens_per_s=tokens / p50 * 1e3,
-               peak_gb=peak, losses=losses, loss_rel_err=loss_err,
+               peak_gb=peak, step_memory=step_mem, losses=losses,
+               loss_rel_err=loss_err,
                grad_rel_err=grad_err, unshifted_fault=fault,
                profiled_ms=busy[0], busy_ms=busy[1],
                top_kernels=top[:TOP_KERNELS], launches=launches)
@@ -2462,7 +2510,10 @@ def lm_train_path(torch, np, dev, counters, pipe, cfg=None) -> dict:
           f"(limit {LM_GRAD_TOL}), labels unshifted "
           f"{fault:.3g}; {LM_TRAIN_STEPS} steps p50 {p50 / 1e3:.3f} s p99 "
           f"{p99 / 1e3:.3f} s ({tokens / p50 * 1e3:,.0f} tokens/s), losses "
-          f"{[round(x, 4) for x in losses]}, peak {peak:.2f} GB; device busy "
+          f"{[round(x, 4) for x in losses]}, peak {peak:.2f} GB (one step "
+          f"{step_mem['own'] / 1e9:.2f} GB its own, "
+          f"{(step_mem['before'] - step_mem['arguments']) / 1e9:.2f} GB held "
+          f"beside it); device busy "
           f"per step {busy_text(*busy)} ({top_text(top)}); init "
           f"{init_s:.1f} s, checks {check_s:.1f} s, warm and timed steps "
           f"{steps_s:.1f} s; launches {launches}", flush=True)
@@ -2795,6 +2846,156 @@ def mesh_path(torch, dev, mesh, ckpt_dir, lm, setup_s) -> dict:
           flush=True)
     return dict(out, wall_s=wall_s, setup_s=setup_s,
                 budget_s=MESH_BUDGET_S)
+
+
+# --------------------------------------------------------------- phase 13
+def dryrun_child(out: str) -> int:
+    """Phase 13 (a) and (b), run as ``chip_smoke.py --dryrun-child OUT`` in
+    a process of its own (no card: fake tensors over fake process groups):
+    phase 11's two steps at its cuts on a (1, 1) mesh, then PHASE13_CELL
+    on the production 16 x 16 mesh.  Writes the results to OUT as JSON."""
+    t_start = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "src"))
+    from dataclasses import replace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import build_bundle
+
+    res = {}
+    mesh = dryrun.fake_mesh((1, 1), ("data", "model"))
+    cuts = {"xdeepfm": ("train_batch", dict(n_microbatches=XDEEPFM_MICRO)),
+            "olmo-1b": ("train_4k", dict(dims=dict(seq=LM_TRAIN_SEQ,
+                                                   batch=LM_TRAIN_BATCH)))}
+    for arch, (shape_name, kw) in cuts.items():
+        spec = get_arch(arch)
+        shape = replace(spec.shapes[shape_name], **kw)
+        spec = replace(spec, shapes=dict(spec.shapes, **{shape_name: shape}))
+        c = dryrun.trace_bundle(build_bundle(spec, shape_name, mesh), mesh)
+        res[arch] = dict(shape=shape_name, dims=shape.dims,
+                         microbatches=shape.n_microbatches,
+                         **{k: c[k] for k in (
+                             "live_bytes", "argument_bytes", "temp_bytes",
+                             "output_bytes", "flops", "trace_s")})
+    t0 = time.perf_counter()
+    cell = dryrun.run_cell(*PHASE13_CELL, multi_pod=False)
+    res["cell"] = dict(
+        arch=cell["arch"], shape=cell["shape"], mesh=cell["mesh"],
+        status=cell["status"], n_chips=cell.get("n_chips"),
+        fits_hbm=cell.get("fits_hbm"), roofline=cell.get("roofline"),
+        per_device={k: v for k, v in cell.get("per_device", {}).items()
+                    if k != "raw_while_once"},
+        wall_s=time.perf_counter() - t0, error=cell.get("error"))
+    res["child_s"] = time.perf_counter() - t_start
+    Path(out).write_text(json.dumps(res))
+    return 0
+
+
+def start_dryrun(tmp: Path):
+    """Start phase 13's subprocess; (process, its output file)."""
+    out = tmp / "dryrun.json"
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dryrun-child",
+         str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    return proc, out
+
+
+def dryrun_phase(proc, out: Path, train: dict) -> dict:
+    """Phase 13 (a) and (b): wait for the subprocess, hold each predicted
+    ``live_bytes`` to phase 11's measured one-step peak within
+    DRYRUN_LIVE_RTOL, the production cell to status ``ok`` and the
+    subprocess to PHASE13_BUDGET_S."""
+    try:
+        log = proc.communicate(timeout=600)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(proc.returncode == 0,
+            f"phase 13's dry run failed:\n{log[-3000:]}")
+    res = json.loads(out.read_text())
+    for arch in ("xdeepfm", "olmo-1b"):
+        got = res[arch]
+        mem = train[arch]["step_memory"]
+        measured, beside = mem["own"], mem["before"] - mem["arguments"]
+        got["measured"] = mem
+        got["rel_err"] = (got["live_bytes"] - measured) / measured
+        print(f"dryrun: {arch} {got['shape']} {got['dims']} x "
+              f"{got['microbatches']} microbatches on a (1, 1) mesh: "
+              f"live {got['live_bytes'] / 1e9:.3f} GB predicted (arguments "
+              f"{got['argument_bytes'] / 1e9:.3f} GB), "
+              f"{measured / 1e9:.3f} GB measured, the step's own (arguments "
+              f"{mem['arguments'] / 1e9:.3f} GB; the card's peak "
+              f"{mem['peak'] / 1e9:.3f} GB with {beside / 1e9:.3f} GB held "
+              f"beside the step) "
+              f"({got['rel_err']:+.4f}; limit {DRYRUN_LIVE_RTOL}); traced "
+              f"in {got['trace_s']:.1f} s", flush=True)
+        require(abs(got["rel_err"]) <= DRYRUN_LIVE_RTOL,
+                f"the dry run's live bytes for {arch} miss the measured peak "
+                f"by {got['rel_err']:+.3f} (limit {DRYRUN_LIVE_RTOL})")
+    cell = res["cell"]
+    print(f"dryrun: {'/'.join(PHASE13_CELL)} on 16 x 16: {cell['status']} "
+          f"in {cell['wall_s']:.1f} s, live "
+          f"{(cell['per_device'].get('live_bytes') or 0) / 1e9:.3f} GB a "
+          f"device, roofline {cell['roofline']}; the subprocess "
+          f"{res['child_s']:.1f} s", flush=True)
+    require(cell["status"] == "ok",
+            f"the dry run of {PHASE13_CELL} ended {cell['status']}: "
+            f"{cell.get('error')}")
+    require(res["child_s"] <= PHASE13_BUDGET_S,
+            f"phase 13's dry run took {res['child_s']:.1f} s (budget "
+            f"{PHASE13_BUDGET_S} s)")
+    return res
+
+
+def host_extract_path(torch, np, dev, counters, seg) -> dict:
+    """Phase 13 (c): phase 4's term wave and its contains AND wave through
+    a ``QueryEngine(extract_on_device=False)`` over phase 4's segments:
+    candidates equal to phase 4's bit for bit; ``token_hash``, the fused
+    probe (one a plane-backed segment) and the fold launched as in device
+    mode, ``bitmap_extract`` never."""
+    from repro_torch.core.query_engine import QueryEngine
+    from repro_torch.core.tokenizer import term_query_tokens
+
+    store = seg["store"]
+    eng = QueryEngine(store.segments, n_postings=len(store.blobs),
+                      device=dev, extract_on_device=False)
+    n_planes = len(eng._plane_segs)
+    waves = {"term": ([term_query_tokens(t) for t in seg["terms"]],
+                      seg["term_cands"]),
+             "contains_and": (seg["needle_toks"], seg["contains"]["and"])}
+    out, total = {}, {}
+    for name, (toks, want) in waves.items():
+        reset(counters)
+        t = time.perf_counter()
+        got = eng.query_batch(toks, op="and")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = read(counters)
+        require(len(got) == len(want) and all(
+            g.dtype == w.dtype and np.array_equal(g, w)
+            for g, w in zip(got, want)),
+            f"host extraction: the {name} wave's candidates differ from "
+            f"phase 4's")
+        require(launches["bitmap_extract"] == 0,
+                f"host extraction: the {name} wave launched bitmap_extract")
+        require(launches["token_hash"] == 1
+                and launches["sketch_probe"] == n_planes
+                and launches["bitset_reduce_batch"] == 1,
+                f"host extraction: the {name} wave launched {launches}, not "
+                f"token_hash and the fold once and one probe a segment "
+                f"({n_planes})")
+        out[name] = dict(queries=len(toks), ms=ms,
+                         answers=int(sum(len(g) for g in got)),
+                         launches=launches)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    print(f"host extraction on phase 4's store: "
+          + ", ".join(f"{k} wave Q={v['queries']} {v['ms']:.1f} ms "
+                      f"({v['answers']} candidates)" for k, v in out.items())
+          + f", equal to phase 4's; launches {total}", flush=True)
+    return dict(waves=out, launches=total)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -4483,6 +4684,21 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     floor_ms = launch_floor_ms(torch)
     print(f"launch floor: {floor_ms:.4f} ms (one empty launch)", flush=True)
+    os.makedirs(ROOT / "build", exist_ok=True)
+    dry_tmp = Path(tempfile.mkdtemp(prefix="dryrun-", dir=ROOT / "build"))
+    dry_proc, dry_out = start_dryrun(dry_tmp)
+    try:
+        return _main(torch, np, dev, card, floor_ms, t_start, dry_proc,
+                     dry_out)
+    finally:
+        if dry_proc.poll() is None:
+            dry_proc.kill()
+            dry_proc.wait()
+        shutil.rmtree(dry_tmp, ignore_errors=True)
+
+
+def _main(torch, np, dev, card, floor_ms, t_start, dry_proc, dry_out) -> int:
+    from repro_torch.configs import get_arch
 
     marks = [time.perf_counter()]
 
@@ -4586,6 +4802,9 @@ def main() -> int:
         LM_TRAIN_BATCH, LM_TRAIN_SEQ)
     paths["train_data"] = train_data.pop("launches")
     timed("phase 11a (the sketch-filtered corpus)")
+    host = host_extract_path(torch, np, dev, counters, seg)
+    paths["host_extract"] = host.pop("launches")
+    timed("phase 13c (host extraction)")
     del seg
     free(torch)
     t0 = time.perf_counter()
@@ -4624,6 +4843,9 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.distributed.destroy_process_group()
     timed("phase 12")
+    dry = dryrun_phase(dry_proc, dry_out, train)
+    dry["host_extract"] = host
+    timed("phase 13 (waiting on the dry run)")
     for path, name in ([(f"lm {arch}", "flash_decode") for arch in lm]
                        + [("two_tower", "retrieval_score"),
                           ("xdeepfm", "embedding_bag"),
@@ -4683,6 +4905,7 @@ def main() -> int:
                           csc=csc, log_search=hunt["stores"], lm=lm,
                           recsys=rec, archs=archs, train=train)))
     print(json.dumps({"mesh": meshed}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"kernels": rows, "launch_floor_ms": floor_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4691,4 +4914,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dryrun-child":
+        sys.exit(dryrun_child(sys.argv[2]))
     sys.exit(main())

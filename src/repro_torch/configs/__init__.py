@@ -27,5 +27,12 @@ def get_arch(arch_id: str) -> ArchSpec:
     return ARCHS[arch_id]
 
 
+def all_cells(include_skipped: bool = False):
+    """Every (arch_id, shape_name) dry-run cell."""
+    return [(aid, sname) for aid, spec in ARCHS.items()
+            for sname, sspec in spec.shapes.items()
+            if include_skipped or not sspec.skip]
+
+
 __all__ = ["ARCHS", "ArchSpec", "DYNAWARP_CONFIG", "DYNAWARP_SMOKE",
-           "DynaWarpConfig", "ShapeSpec", "get_arch"]
+           "DynaWarpConfig", "ShapeSpec", "all_cells", "get_arch"]

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import LMConfig
-from .base import ArchSpec, lm_shapes
+from .base import ArchSpec, lm_input_specs, lm_shapes
 
 CONFIG = LMConfig(
     name="arctic-480b", n_layers=35, d_model=7168, n_heads=56, n_kv_heads=8,
@@ -44,5 +44,5 @@ SPEC = ArchSpec(
                      skip_long="pure full-attention arch: 500k decode cell "
                                "skipped"),
     optimizer="adafactor", grad_accum_dtype="bfloat16", fsdp=True,
-    smoke_batch=smoke_batch,
+    inputs=lm_input_specs, smoke_batch=smoke_batch,
     notes="128e top-2 + dense residual; adafactor+bf16 accum for memory")

@@ -1,14 +1,37 @@
-"""Config substrate: ArchSpec / ShapeSpec and the shape tables.
+"""Config substrate: ArchSpec / ShapeSpec, the shape tables and the
+``inputs`` contract.
 
-Every ported architecture registers an ArchSpec carrying its published
-config, its shape set, a reduced smoke config and a ``smoke_batch`` that
-makes a real small batch.  The JAX package's ``inputs`` functions (abstract
-inputs for the dry run) are not ported.
+Every architecture registers an ArchSpec carrying its published config,
+its shape set (each cell of the dry-run matrix), a reduced smoke config, a
+``smoke_batch`` that makes a real small batch and ``inputs(config, shape)``:
+a tree of ``TensorSpec`` stand-ins (shape and dtype, nothing allocated)
+for every input of the cell's step, which the dry run (``launch/dryrun.py``)
+traces.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Callable
+
+import torch
+
+from ..models.layers import torch_dtype
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """A tensor's shape and dtype, with nothing allocated (the JAX
+    package's ``ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def sds(shape, dtype) -> TensorSpec:
+    """A ``TensorSpec``; ``dtype`` a torch dtype or its name
+    ("int32", "float32", "bfloat16")."""
+    if isinstance(dtype, str):
+        dtype = torch.int32 if dtype == "int32" else torch_dtype(dtype)
+    return TensorSpec(tuple(int(x) for x in shape), dtype)
 
 
 @dataclass(frozen=True)
@@ -33,10 +56,15 @@ class ArchSpec:
     grad_accum_dtype: str = "float32"
     fsdp: bool = False
     notes: str = ""
+    inputs: Callable = None      # (config, ShapeSpec) -> TensorSpec tree
     smoke_batch: Callable = None  # (config, numpy rng, device) -> batch
 
     def shape(self, name: str) -> ShapeSpec:
         return self.shapes[name]
+
+    def cells(self):
+        """All (arch, shape) dry-run cells, skipped ones included."""
+        return [(self.id, s) for s in self.shapes]
 
 
 def pad_to(n: int, mult: int) -> int:
@@ -65,6 +93,34 @@ def lm_shapes(*, n_micro: dict | None = None, skip_long: str | None = None):
                                LM_SHAPES["long_500k"],
                                decode_policy="seq", skip=skip_long),
     }
+
+
+def lm_input_specs(cfg, shape: ShapeSpec):
+    b, s = shape.dims["batch"], shape.dims["seq"]
+    if shape.kind == "train":
+        return {"tokens": sds((b, s), "int32"),
+                "labels": sds((b, s), "int32"),
+                "mask": sds((b, s), "float32")}
+    if shape.kind == "prefill":
+        return {"tokens": sds((b, s), "int32")}
+    if shape.kind == "decode":
+        cache_shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
+        return {"cache": {"k": sds(cache_shape, cfg.dtype),
+                          "v": sds(cache_shape, cfg.dtype)},
+                "tokens": sds((b,), "int32")}
+    raise ValueError(shape.kind)
+
+
+def gnn_input_specs(cfg, shape: ShapeSpec):
+    d = shape.dims
+    n, e = d["n_nodes"], d["n_edges"]
+    return {"nodes": sds((n, d["d_feat"]), cfg.dtype),
+            "edges": sds((e, cfg.d_edge_in), cfg.dtype),
+            "senders": sds((e,), "int32"),
+            "receivers": sds((e,), "int32"),
+            "edge_mask": sds((e,), cfg.dtype),
+            "node_mask": sds((n,), cfg.dtype),
+            "targets": sds((n, cfg.d_out), cfg.dtype)}
 
 
 RECSYS_SHAPES = dict(

@@ -35,11 +35,14 @@ Beyond-paper read-path knobs (sharded device retrieval), also
     fold and extraction.  ``ShardedQueryEngine(segments, devices=[dev]
     * N)`` holds N logical shards on one card.
   * ``extract_on_device`` — where hit bitmaps become posting ids.
-    ``None``/``True`` (default, and the only values the port takes): on
-    the device through the ``bitmap_extract`` compaction — one id array
-    of exactly the wave's answer size crosses to the host per wave.
-    Lone queries always take the scalar host path and never
-    materialize bitmaps at all.
+    ``None``/``True`` (default): on the device through the
+    ``bitmap_extract`` compaction — one id array of exactly the wave's
+    answer size crosses to the host per wave.  ``False``: the folded
+    (Q, W) bitmaps cross instead and each non-empty row is decoded on
+    the host (flatnonzero over its non-empty words, LRU-cached by
+    content); the probes and the fold stay on the device.  Lone queries
+    always take the scalar host path and never materialize bitmaps at
+    all.
 
 Beyond-paper durability knobs (manifest-based segment store),
 also ``DynaWarpStore`` constructor arguments:

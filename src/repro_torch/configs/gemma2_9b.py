@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import LMConfig
-from .base import ArchSpec, lm_shapes
+from .base import ArchSpec, lm_input_specs, lm_shapes
 
 CONFIG = LMConfig(
     name="gemma2-9b", n_layers=42, d_model=3584, n_heads=16, n_kv_heads=8,
@@ -40,6 +40,6 @@ SPEC = ArchSpec(
     config=CONFIG, smoke_config=SMOKE,
     shapes=lm_shapes(n_micro={"train_4k": 4}),
     optimizer="adamw", fsdp=True,
-    smoke_batch=smoke_batch,
+    inputs=lm_input_specs, smoke_batch=smoke_batch,
     notes="local+global alternating, logit softcap; long_500k RUN "
           "(hybrid local/global; decode is O(S)/step with seq-sharded KV)")

@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import LMConfig
-from .base import ArchSpec, lm_shapes
+from .base import ArchSpec, lm_input_specs, lm_shapes
 
 CONFIG = LMConfig(
     name="llama3-8b", n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
@@ -32,5 +32,6 @@ SPEC = ArchSpec(
     shapes=lm_shapes(n_micro={"train_4k": 4},
                      skip_long="pure full-attention arch: 500k decode cell "
                                "skipped"),
-    optimizer="adamw", fsdp=True, smoke_batch=smoke_batch,
+    optimizer="adamw", fsdp=True, inputs=lm_input_specs,
+    smoke_batch=smoke_batch,
     notes="GQA kv=8, 128k vocab")

@@ -12,11 +12,13 @@ over pod x data x model = 512 in the JAX package's dry run):
   molecule      : 128 graphs x 30 nodes / 64 edges -> 3840 nodes,
                   8192 edges, d_feat=16
 """
+from dataclasses import replace
+
 import numpy as np
 import torch
 
 from ..models.gnn import GNNConfig
-from .base import ArchSpec, ShapeSpec, pad_to
+from .base import ArchSpec, ShapeSpec, gnn_input_specs, pad_to
 
 CONFIG = GNNConfig(name="meshgraphnet", n_layers=15, d_hidden=128,
                    mlp_layers=2, aggregator="sum", d_node_in=1433,
@@ -42,6 +44,12 @@ SHAPES = {
 }
 
 
+def inputs(cfg, shape):
+    # d_node_in follows the shape's d_feat
+    return gnn_input_specs(replace(cfg, d_node_in=shape.dims["d_feat"]),
+                           shape)
+
+
 def smoke_batch(cfg, rng: np.random.Generator, device="cpu"):
     n, e = 24, 64
 
@@ -62,6 +70,6 @@ def smoke_batch(cfg, rng: np.random.Generator, device="cpu"):
 SPEC = ArchSpec(
     id="meshgraphnet", family="gnn", source="arXiv:2010.03409; unverified",
     config=CONFIG, smoke_config=SMOKE, shapes=SHAPES,
-    optimizer="adamw", smoke_batch=smoke_batch,
+    optimizer="adamw", inputs=inputs, smoke_batch=smoke_batch,
     notes="segment_sum message passing; edges shard over all mesh axes; "
           "graph shapes padded to multiples of 512 for the pod mesh")

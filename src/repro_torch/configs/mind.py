@@ -5,7 +5,7 @@ import numpy as np
 import torch
 
 from ..models.recsys import MINDConfig
-from .base import ArchSpec, recsys_shapes
+from .base import ArchSpec, recsys_shapes, sds
 
 CONFIG = MINDConfig(name="mind", n_items=1_000_000, embed_dim=64,
                     n_interests=4, capsule_iters=3, seq_len=50)
@@ -15,6 +15,22 @@ SMOKE = MINDConfig(name="mind-smoke", n_items=512, embed_dim=16,
 
 N_NEG = 20
 SERVE_CANDS = 1024
+
+
+def inputs(cfg, shape):
+    d = shape.dims
+    L = cfg.seq_len
+    if shape.kind == "train":
+        return {"seq": sds((d["batch"], L), "int32"),
+                "pos": sds((d["batch"],), "int32"),
+                "neg": sds((d["batch"], N_NEG), "int32")}
+    if shape.kind == "serve":
+        return {"seq": sds((d["batch"], L), "int32"),
+                "cand": sds((d["batch"], SERVE_CANDS), "int32")}
+    if shape.kind == "retrieval":
+        return {"seq": sds((1, L), "int32"),
+                "cand": sds((d["n_candidates"],), "int32")}
+    raise ValueError(shape.kind)
 
 
 def smoke_batch(cfg, rng: np.random.Generator, device="cpu"):
@@ -30,6 +46,6 @@ def smoke_batch(cfg, rng: np.random.Generator, device="cpu"):
 SPEC = ArchSpec(
     id="mind", family="recsys", source="arXiv:1904.08030; unverified",
     config=CONFIG, smoke_config=SMOKE, shapes=recsys_shapes(),
-    optimizer="adamw", smoke_batch=smoke_batch,
+    optimizer="adamw", inputs=inputs, smoke_batch=smoke_batch,
     notes="B2I capsule routing (3 iters, 4 interests); max-over-interests "
           "scoring")

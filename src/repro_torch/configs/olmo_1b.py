@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import LMConfig
-from .base import ArchSpec, lm_shapes
+from .base import ArchSpec, lm_input_specs, lm_shapes
 
 CONFIG = LMConfig(
     name="olmo-1b", n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16,
@@ -33,5 +33,5 @@ SPEC = ArchSpec(
                      skip_long="pure full-attention arch: 500k decode cell "
                                "skipped"),
     optimizer="adamw", fsdp=False,
-    smoke_batch=smoke_batch,
+    inputs=lm_input_specs, smoke_batch=smoke_batch,
     notes="non-parametric LN; MHA (kv=16) shards cleanly over model=16")

@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import LMConfig
-from .base import ArchSpec, lm_shapes
+from .base import ArchSpec, lm_input_specs, lm_shapes
 
 CONFIG = LMConfig(
     name="phi3.5-moe-42b-a6.6b", n_layers=32, d_model=4096, n_heads=32,
@@ -36,5 +36,5 @@ SPEC = ArchSpec(
                      skip_long="pure full-attention arch: 500k decode cell "
                                "skipped"),
     optimizer="adamw", fsdp=True,
-    smoke_batch=smoke_batch,
+    inputs=lm_input_specs, smoke_batch=smoke_batch,
     notes="16 experts top-2; expert dim shards 1 expert/chip at model=16")

@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 from ..models.recsys import TwoTowerConfig
-from .base import ArchSpec, recsys_shapes
+from .base import ArchSpec, recsys_shapes, sds
 
 CONFIG = TwoTowerConfig(name="two-tower-retrieval", embed_dim=256,
                         tower_mlp=(1024, 512, 256), n_user_fields=8,
@@ -17,6 +17,20 @@ SMOKE = TwoTowerConfig(name="two-tower-smoke", embed_dim=32,
                        tower_mlp=(64, 32), n_user_fields=4,
                        n_item_fields=2, field_vocab=128, field_dim=8,
                        n_corpus=1024)
+
+
+def inputs(cfg, shape):
+    d = shape.dims
+    if shape.kind == "train":
+        return {"user_idx": sds((d["batch"], cfg.n_user_fields), "int32"),
+                "item_idx": sds((d["batch"], cfg.n_item_fields), "int32"),
+                "logq": sds((d["batch"],), "float32")}
+    if shape.kind == "serve":
+        return {"user_idx": sds((d["batch"], cfg.n_user_fields), "int32"),
+                "item_idx": sds((d["batch"], cfg.n_item_fields), "int32")}
+    if shape.kind == "retrieval":
+        return {"user_idx": sds((1, cfg.n_user_fields), "int32")}
+    raise ValueError(shape.kind)
 
 
 def smoke_batch(cfg, rng: np.random.Generator, device="cpu"):
@@ -35,6 +49,6 @@ SPEC = ArchSpec(
     id="two-tower-retrieval", family="recsys",
     source="RecSys'19 (YouTube); unverified",
     config=CONFIG, smoke_config=SMOKE, shapes=recsys_shapes(),
-    optimizer="adamw", smoke_batch=smoke_batch,
+    optimizer="adamw", inputs=inputs, smoke_batch=smoke_batch,
     notes="in-batch sampled softmax + logQ; retrieval_cand is the 1M-corpus "
           "GEMV (kernels/retrieval_score)")

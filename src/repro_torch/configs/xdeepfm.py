@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from ..models.recsys import XDeepFMConfig
-from .base import ArchSpec, recsys_shapes
+from .base import ArchSpec, recsys_shapes, sds
 
 CONFIG = XDeepFMConfig(name="xdeepfm", n_sparse=39, vocab_per_field=1_000_000,
                        embed_dim=10, cin_layers=(200, 200, 200),
@@ -16,6 +16,19 @@ CONFIG = XDeepFMConfig(name="xdeepfm", n_sparse=39, vocab_per_field=1_000_000,
 
 SMOKE = XDeepFMConfig(name="xdeepfm-smoke", n_sparse=5, vocab_per_field=128,
                       embed_dim=8, cin_layers=(8, 8), mlp_sizes=(16, 16))
+
+
+def inputs(cfg, shape):
+    d = shape.dims
+    if shape.kind == "train":
+        return {"idx": sds((d["batch"], cfg.n_sparse), "int32"),
+                "label": sds((d["batch"],), "float32")}
+    if shape.kind == "serve":
+        return {"idx": sds((d["batch"], cfg.n_sparse), "int32")}
+    if shape.kind == "retrieval":
+        return {"idx": sds((1, cfg.n_sparse), "int32"),
+                "cand": sds((d["n_candidates"],), "int32")}
+    raise ValueError(shape.kind)
 
 
 def smoke_batch(cfg, rng: np.random.Generator, device="cpu"):
@@ -30,5 +43,5 @@ def smoke_batch(cfg, rng: np.random.Generator, device="cpu"):
 SPEC = ArchSpec(
     id="xdeepfm", family="recsys", source="arXiv:1803.05170; paper",
     config=CONFIG, smoke_config=SMOKE, shapes=recsys_shapes(),
-    optimizer="adamw", smoke_batch=smoke_batch,
+    optimizer="adamw", inputs=inputs, smoke_batch=smoke_batch,
     notes="CIN interaction; wide term through kernels/embedding_bag")

@@ -60,7 +60,7 @@ class ShardedQueryEngine(QueryEngine):
 
     def __init__(self, segments, *, devices=None, shard_axes=("data",),
                  n_postings: int | None = None, lru_lists: int = 4096,
-                 device=None):
+                 device=None, extract_on_device: bool | None = None):
         self.shard_axes = tuple(shard_axes)
         if devices is None:
             devices = default_shard_devices(self.shard_axes, device)
@@ -74,7 +74,8 @@ class ShardedQueryEngine(QueryEngine):
             raise ValueError(f"device={device!r} is not the first shard's "
                              f"device {devices[0]}")
         super().__init__(segments, n_postings=n_postings,
-                         lru_lists=lru_lists, device=devices[0])
+                         lru_lists=lru_lists, device=devices[0],
+                         extract_on_device=extract_on_device)
         self.devices = devices
         self.n_shards = len(devices)
         self._assign_shards()
@@ -115,7 +116,8 @@ class ShardedQueryEngine(QueryEngine):
         return ShardedQueryEngine(self.segments, devices=self.devices,
                                   shard_axes=self.shard_axes,
                                   n_postings=self.n_postings,
-                                  lru_lists=self._lru_cap)
+                                  lru_lists=self._lru_cap,
+                                  extract_on_device=self._extract_on_device)
 
     # ------------------------------------------------------------- dispatch
     def _device_token_planes(self, fps_dev: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,12 @@ one extraction per wave:
     compact on the device (CUDA ``bitmap_extract`` kernel's ragged entry)
     into one id array of exactly the wave's answer size, which crosses to
     the host once (into pinned memory) and is cut into the queries'
-    arrays as views of one fresh int64 array.
+    arrays as views of one fresh int64 array.  With
+    ``extract_on_device=False`` the probes and the fold still run on the
+    device, but the folded (Q, W) bitmaps cross to the host and each
+    non-empty row is decoded there (flatnonzero over its non-empty words,
+    an LRU of decoded rows keyed by content): ``bitmap_extract`` is not
+    launched.
 
 On a CPU device every kernel wrapper takes its plain PyTorch version.
 Threads may run waves on one engine at once: each copy to the host takes
@@ -80,9 +85,13 @@ class QueryEngine:
     """Evaluates query waves against one or more immutable segments."""
 
     def __init__(self, segments, *, n_postings: int | None = None,
-                 lru_lists: int = 4096, device=None):
+                 lru_lists: int = 4096, device=None,
+                 extract_on_device: bool | None = None):
         self.segments = [s for s in segments if s.n_tokens > 0]
         self.device = resolve_device(device)
+        # None or True: the device compaction; False: the host decode
+        self._extract_on_device = (True if extract_on_device is None
+                                   else bool(extract_on_device))
         if n_postings is None:
             n_postings = max((s.n_postings for s in self.segments),
                              default=0)
@@ -95,6 +104,9 @@ class QueryEngine:
         self._lru: OrderedDict[tuple, np.ndarray] = OrderedDict()
         self._lru_cap = lru_lists
         self._lru_lock = threading.Lock()
+        # host-extraction LRU of decoded bitmap rows (keyed by content),
+        # alongside the BIC posting-list LRU above
+        self._bm_lru: OrderedDict[bytes, np.ndarray] = OrderedDict()
         self.upload_count = 0       # segment device-cache uploads
 
     # ------------------------------------------------------------- public
@@ -244,7 +256,19 @@ class QueryEngine:
         ``bitmaps`` and ``counts`` are the live queries' (query ``live[i]``
         in row i).  Their prefix sums place each row's ids in one array of
         exactly the wave's answer size, which crosses to the host once; each
-        query's answer is a view of one fresh int64 copy of it."""
+        query's answer is a view of one fresh int64 copy of it.  In host
+        mode the bitmaps cross instead and ``_decode_bitmap_host`` decodes
+        each non-empty row."""
+        if not self._extract_on_device:
+            out = [np.empty(0, np.int64)] * n_queries
+            nz = np.flatnonzero(counts > 0)
+            if nz.size:
+                q, w = bitmaps.shape
+                rows = _to_host(bitmaps.reshape(-1)).view(np.uint32) \
+                    .reshape(q, w)
+                for i in nz.tolist():
+                    out[int(live[i])] = self._decode_bitmap_host(rows[i])
+            return out
         starts, ends, offsets = self._offsets(counts, live, n_queries)
         if offsets is None:
             return [np.empty(0, np.int64) for _ in range(n_queries)]
@@ -271,12 +295,37 @@ class QueryEngine:
         copied to the host once."""
         return _to_host(bitmap_extract_ragged(bitmaps, offsets, total))
 
+    def _decode_bitmap_host(self, row: np.ndarray) -> np.ndarray:
+        """Posting ids of one (W,) uint32 bitmap row, via flatnonzero over
+        the non-empty words only (no full bit-matrix expansion), LRU-cached
+        by row content so repeated needles skip the decode."""
+        key = row.tobytes()
+        with self._lru_lock:
+            hit = self._bm_lru.get(key)
+            if hit is not None:
+                self._bm_lru.move_to_end(key)
+                return hit
+        w_idx = np.flatnonzero(row)
+        if w_idx.size == 0:
+            ids = np.empty(0, np.int64)
+        else:
+            sub, lane = np.nonzero(
+                (row[w_idx][:, None] >> np.arange(32, dtype=np.uint32)) & 1)
+            ids = (w_idx[sub].astype(np.int64) << 5) + lane
+            ids = ids[ids < self.n_postings]
+        with self._lru_lock:
+            self._bm_lru[key] = ids
+            if len(self._bm_lru) > self._lru_cap:
+                self._bm_lru.popitem(last=False)
+        return ids
+
     # ------------------------------------------------------------ replicas
     def clone(self) -> "QueryEngine":
         """A replica over the same segments: shares every per-segment
-        device cache but owns its LRU."""
+        device cache but owns its LRUs; keeps the extraction mode."""
         return QueryEngine(self.segments, n_postings=self.n_postings,
-                           lru_lists=self._lru_cap, device=self.device)
+                           lru_lists=self._lru_cap, device=self.device,
+                           extract_on_device=self._extract_on_device)
 
     # ------------------------------------------------------------- sizing
     def device_bytes(self) -> int:

@@ -125,6 +125,25 @@ class _PSum(torch.autograd.Function):
         return _all_reduce(g, ctx.groups), None
 
 
+class _PMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        import torch.distributed as dist
+
+        y = x.clone()
+        for g in groups:
+            dist.all_reduce(y, op=dist.ReduceOp.MAX, group=g)
+        ctx.groups = groups
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        held = (x == y).to(g.dtype)
+        return g * held / _all_reduce(held, ctx.groups), None
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -200,6 +219,13 @@ def psum(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     """Sum over the ranks of ``axes`` (a name or a tuple of names), in x's
     dtype; its backward is the same sum."""
     return _PSum.apply(x, _groups(mesh, axes))
+
+
+def pmax(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The elementwise maximum over the ranks of ``axes``; its backward
+    hands each element's cotangent to the ranks that hold the maximum,
+    split evenly among them."""
+    return _PMax.apply(x, _groups(mesh, axes))
 
 
 def pmean(x: torch.Tensor, axes, mesh) -> torch.Tensor:

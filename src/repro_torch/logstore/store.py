@@ -47,7 +47,6 @@ from ..kernels.csc_probe.ops import csc_partition_mask
 from .blobfile import BlobFile
 from .compress import compress_batch, decompress_batch
 
-_NOT_PORTED = "not yet ported"
 MANIFEST_NAME = "MANIFEST.json"
 # format 2: adds ``finished`` (live-ingest manifests published at every
 # spill carry finished=false until the final finish() publish), writer
@@ -455,8 +454,9 @@ class DynaWarpStore(LogStoreBase):
     over them — same kernels, bit-identical results.  Rebuilds (spill
     publishes, compaction, ``open()``, snapshots) stay sharded, and
     unchanged segments keep their shards and uploaded buffers.
-    ``extract_on_device`` may be None or True: extraction always runs on
-    the store's device."""
+    ``extract_on_device=False`` keeps the probes and the fold on the
+    device but decodes the folded bitmaps on the host
+    (``QueryEngine``); None or True compacts them on the device."""
     name = "dynawarp"
 
     def __init__(self, *, batch_lines: int = 512, mode: str = "batch",
@@ -473,9 +473,6 @@ class DynaWarpStore(LogStoreBase):
                  compact_backoff_s: float = 0.05):
         if mode not in ("batch", "online", "segmented"):
             raise ValueError(f"mode={mode!r}")
-        if extract_on_device not in (None, True):
-            raise NotImplementedError(
-                f"extract_on_device={extract_on_device!r}: {_NOT_PORTED}")
         super().__init__(batch_lines=batch_lines,
                          ingest_cache_size=ingest_cache_size)
         # the index is filled in here, once: a compactor thread's own
@@ -973,9 +970,11 @@ class DynaWarpStore(LogStoreBase):
             return ShardedQueryEngine(self.segments,
                                       n_postings=len(self.blobs),
                                       shard_axes=self.shard_axes,
-                                      device=self.device)
+                                      device=self.device,
+                                      extract_on_device=self.extract_on_device)
         return QueryEngine(self.segments, n_postings=len(self.blobs),
-                           device=self.device)
+                           device=self.device,
+                           extract_on_device=self.extract_on_device)
 
     def index_bytes(self) -> int:
         if self.segments:

@@ -22,14 +22,15 @@ each message-passing layer is recomputed in the backward pass
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from functools import partial
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .layers import layer_norm_nonparam, mlp_apply, mlp_init, torch_dtype
+from .layers import (is_dtensor, layer_norm_nonparam, mlp_apply, mlp_init,
+                     torch_dtype)
 
 
 @dataclass(frozen=True)
@@ -85,7 +86,11 @@ def _aggregate(cfg: GNNConfig, messages: torch.Tensor,
                receivers: torch.Tensor, n_nodes: int) -> torch.Tensor:
     """(E, D) messages -> (n_nodes, D).  A node with no message sums to 0
     and maxes to -inf, as ``jax.ops.segment_max`` leaves it; mean divides
-    by the count of messages (padded edges included), at least 1."""
+    by the count of messages (padded edges included), at least 1.  Edge-
+    split DTensors aggregate on each rank (``_aggregate_sharded``)."""
+    if is_dtensor(messages):
+        return _aggregate_sharded(cfg, messages, receivers, n_nodes)
+
     def zeros(d):
         return torch.zeros(n_nodes, d, dtype=messages.dtype,
                            device=messages.device)
@@ -103,6 +108,48 @@ def _aggregate(cfg: GNNConfig, messages: torch.Tensor,
         c = zeros(1).index_add_(0, receivers, torch.ones_like(messages[:, :1]))
         return s / c.clamp_min(1.0)
     raise ValueError(cfg.aggregator)
+
+
+def _aggregate_sharded(cfg: GNNConfig, messages, receivers, n_nodes: int):
+    """``_aggregate`` of DTensor messages and receivers split over the
+    edges: each rank aggregates its own edges into a whole (n_nodes, D)
+    partial, and the partials are combined across the edge split (a sum,
+    or a max whose gradient goes to the ranks that hold it: DTensor's
+    ``Partial("max")`` would hand it to every rank), as the JAX package's
+    segment ops combine theirs."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..launch.mesh import pmax
+
+    mesh = messages.device_mesh
+    e_pl = tuple(p if p == Shard(0) else Replicate()
+                 for p in messages.placements)
+    e_axes = tuple(n for n, p in zip(mesh.mesh_dim_names, e_pl)
+                   if p == Shard(0))
+    rep = (Replicate(),) * mesh.ndim
+    part = tuple(Partial() if p == Shard(0) else Replicate() for p in e_pl)
+
+    def local(m, r):
+        if cfg.aggregator == "max":
+            a = _aggregate(cfg, m, r, n_nodes)
+            return (pmax(a, e_axes, mesh) if e_axes else a,)
+        if cfg.aggregator == "mean":
+            s = _aggregate(replace(cfg, aggregator="sum"), m, r, n_nodes)
+            c = torch.zeros(n_nodes, 1, dtype=m.dtype, device=m.device
+                            ).index_add_(0, r, torch.ones_like(m[:, :1]))
+            return s, c
+        return (_aggregate(cfg, m, r, n_nodes),)
+
+    n_out = 2 if cfg.aggregator == "mean" else 1
+    outs = local_map(local, out_placements=(
+        rep if cfg.aggregator == "max" else part,) * n_out,
+        in_placements=(e_pl, e_pl), device_mesh=mesh,
+        redistribute_inputs=True)(messages, receivers)
+    outs = [o.redistribute(mesh, rep) for o in outs]
+    if cfg.aggregator == "mean":
+        return outs[0] / outs[1].clamp_min(1.0)
+    return outs[0]
 
 
 def _process(cfg: GNNConfig, h: torch.Tensor, e: torch.Tensor,

@@ -7,6 +7,7 @@ explicit ``torch.Generator`` and place their tensors on its device.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -84,12 +85,166 @@ def mlp_apply(params: dict, x: torch.Tensor, *, act=torch.relu,
     return x
 
 
+def is_dtensor(t) -> bool:
+    return isinstance(t, DTensor)
+
+
+def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t``, made inside a step, as a tensor that combines with ``ref``: a
+    replicated DTensor on ``ref``'s mesh when ``ref`` is a DTensor (a
+    sharded step's parameters and batch are), else ``t`` itself."""
+    if isinstance(t, DTensor) or not isinstance(ref, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _keep_splits(t: torch.Tensor, keep) -> torch.Tensor:
+    """A DTensor with every placement for which ``keep(mesh dim name,
+    placement)`` is false made ``Replicate`` (a gather, or the sum of a
+    Partial); a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    mesh = t.device_mesh
+    want = tuple(p if keep(n, p) else Replicate()
+                 for n, p in zip(mesh.mesh_dim_names, t.placements))
+    return t if want == tuple(t.placements) else t.redistribute(mesh, want)
+
+
+def batch_split(x: torch.Tensor) -> torch.Tensor:
+    """An activation entering a product, split over its batch (dim 0)
+    only: a DTensor's other splits are gathered and Partial sums summed,
+    so that the product sees (rows, features) with whole features."""
+    return _keep_splits(x, lambda n, p: p == Shard(0))
+
+
+def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``.  A DTensor table whose rows are split is looked up on
+    each rank (``_split_rows``); a whole DTensor table through
+    ``embedding``, its rows split as ``idx`` is."""
+    if not is_dtensor(table):
+        return table[idx]
+    if Shard(0) in table.placements:
+        return _split_rows(table, idx)
+    return batch_split(torch.nn.functional.embedding(idx, table))
+
+
+def _split_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` of a row-split DTensor table, as the JAX package's
+    sharded gather: each rank looks up the ids that fall in its rows (the
+    others read as zeros) and the partial rows are summed over the table's
+    split (``launch.mesh``'s ``shard_map`` and ``psum``).  Ids split over a
+    mesh dim that also splits the table are first gathered over it, so
+    that every rank of a sum looks up the same ids; the rows are split
+    back as the ids were afterwards.  Each rank's table gradient is its
+    own rows' (DTensor's ``embedding`` rule makes a whole-table gradient
+    on every rank)."""
+    from ..launch.mesh import psum, shard_map
+    from ..launch.shardings import P
+
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    t_dims = [d for d, p in enumerate(table.placements) if p == Shard(0)]
+    t_axes = tuple(names[d] for d in t_dims)
+    i_dims = [d for d, p in enumerate(idx.placements)
+              if p == Shard(0)] if is_dtensor(idx) else []
+    n_rows = table.shape[0]
+
+    def local(tab, ix):
+        # this rank's first row: DTensor's split, one mesh dim after another
+        start, size = 0, n_rows
+        for d in t_dims:
+            chunk, r = -(-size // mesh.size(d)), mesh.get_local_rank(d)
+            start += r * chunk
+            size = max(0, min(chunk, size - r * chunk))
+        n = tab.shape[0]
+        loc = ix.long() - start
+        hit = (loc >= 0) & (loc < n)
+        out = tab[loc.clamp(0, n - 1)] * hit[..., None].to(tab.dtype)
+        return psum(out, t_axes, mesh)
+
+    lead = tuple(names[d] for d in i_dims if d not in t_dims) or None
+    out = shard_map(local, mesh=mesh,
+                    in_specs=(P(t_axes, *([None] * (table.dim() - 1))),
+                              P(lead, *([None] * (idx.dim() - 1)))),
+                    out_specs=P(lead, *([None] * idx.dim())))(table, idx)
+    if any(d in t_dims for d in i_dims):
+        # each rank keeps its own ids' rows (a slice, nothing sent)
+        out = out.redistribute(mesh, tuple(
+            Shard(0) if d in i_dims else Replicate()
+            for d in range(mesh.ndim)))
+    return out
+
+
+def model_split(w: torch.Tensor) -> torch.Tensor:
+    """A weight entering a product, split over the ``model`` mesh dim
+    only: a DTensor's FSDP split over the other dims is gathered (its
+    gradient comes back reduce-scattered)."""
+    return _keep_splits(w, lambda n, p: n == "model")
+
+
+def product_input(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` laid out for ``x @ w`` with ``w`` a ``model_split`` weight: the
+    batch split (dim 0) kept; on a mesh dim where ``w``'s rows (the
+    contracted dim) are split, ``x``'s last dim split alike (row-parallel:
+    no gather, and the weight's gradient stays a shard); elsewhere whole
+    (column-parallel).  A plain ``x`` as it is."""
+    if not is_dtensor(x):
+        return x
+    last = x.dim() - 1
+    want = tuple(xp if xp == Shard(0) else
+                 Shard(last) if wp == Shard(0) else Replicate()
+                 for xp, wp in zip(x.placements, w.placements))
+    return x if want == tuple(x.placements) else x.redistribute(
+        x.device_mesh, want)
+
+
+class _ProductGrad(torch.autograd.Function):
+    """The identity on a product's DTensor output, whose backward lays the
+    cotangent out as the weight's gradient wants it: split over the batch
+    (dim 0) and the features (the last dim) as it is, Partial sums summed,
+    any other split (a sequence split from a sequence-parallel core)
+    gathered.  DTensor would otherwise pick a layout that splits the
+    flattened rows over two mesh dims, which its products refuse, or gather
+    the weight and repeat every rank's product."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        last = g.dim() - 1
+        return _keep_splits(g, lambda n, p: p in (Shard(0), Shard(last)))
+
+
+def product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; on DTensors with the weight's FSDP split gathered
+    (``model_split``), ``x`` laid out for it (``product_input``) and the
+    cotangent laid out for the weight's gradient (``_ProductGrad``)."""
+    if not is_dtensor(x):
+        return x @ w
+    w = model_split(w)
+    return _ProductGrad.apply(product_input(x, w) @ w)
+
+
+def whole_last_dim(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with its last dim whole on every rank (a vocab-split DTensor's
+    logits gathered, a Partial one summed; other splits kept); a plain
+    tensor as it is."""
+    last = t.dim() - 1
+    return _keep_splits(t, lambda n, p: isinstance(p, Shard)
+                        and p.dim != last)
+
+
 def rope_table(positions: torch.Tensor, d_head: int, theta: float = 10000.0,
                dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
     """(..., d_head / 2) cos and sin tables for the given positions."""
     half = d_head // 2
-    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
-                                          device=positions.device) / half))
+    freqs = replicated_like(1.0 / (theta ** (torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)),
+        positions)
     ang = positions.to(torch.float32)[..., None] * freqs
     return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
 

@@ -22,8 +22,8 @@ import torch
 
 from ..kernels.embedding_bag.ops import embedding_bag_sum
 from ..kernels.retrieval_score.ops import retrieval_scores
-from .layers import (at_least_f32, mlp_apply, mlp_init, normal, rms_norm,
-                     torch_dtype)
+from .layers import (at_least_f32, is_dtensor, mlp_apply, mlp_init, normal,
+                     replicated_like, rms_norm, rows, torch_dtype)
 
 
 # ------------------------------------------------------------ embedding ops
@@ -110,10 +110,14 @@ def xdeepfm_logits(cfg: XDeepFMConfig, params: dict, idx: torch.Tensor
                    ) -> torch.Tensor:
     """idx (B, n_sparse) int32 field-local ids -> (B,) logits.  The wide term
     is the D = 1 bag sum of the 39 fields' weights (``embedding_bag_sum``)."""
-    abs_idx = (idx.to(torch.int32) + _field_offsets(
-        [cfg.vocab_per_field] * cfg.n_sparse, idx.device)[None, :]).contiguous()
-    e = params["table"][abs_idx]                              # (B, m, D)
-    wide = embedding_bag_sum(params["wide"][:, None], abs_idx)[:, 0]
+    abs_idx = (idx.to(torch.int32) + replicated_like(_field_offsets(
+        [cfg.vocab_per_field] * cfg.n_sparse, idx.device), idx)[None, :]
+    ).contiguous()
+    e = rows(params["table"], abs_idx)                        # (B, m, D)
+    if is_dtensor(abs_idx):    # the kernel's plain version, on DTensors
+        wide = rows(params["wide"][:, None], abs_idx).sum(-2)[:, 0]
+    else:
+        wide = embedding_bag_sum(params["wide"][:, None], abs_idx)[:, 0]
     # CIN (compressed interaction network)
     x0, xk, pooled = e, e, []
     for w in params["cin"]:
@@ -140,11 +144,15 @@ def xdeepfm_loss(cfg: XDeepFMConfig, params: dict, batch: dict):
 def xdeepfm_retrieval(cfg: XDeepFMConfig, params: dict, batch: dict
                       ) -> torch.Tensor:
     """Score n_candidates items for ONE user context: the candidate id
-    replaces field 0, the other fields broadcast."""
+    replaces field 0, the other fields broadcast.  The rows are built
+    around ``cand`` (a concatenation), so that a DTensor ``cand`` split
+    over the mesh keeps its split through the model."""
     cand = batch["cand"]
-    idx = batch["idx"].expand(cand.shape[0], cfg.n_sparse).clone()
-    idx[:, 0] = cand
-    return xdeepfm_logits(cfg, params, idx)
+    ctx = batch["idx"][:, 1:].expand(cand.shape[0], cfg.n_sparse - 1)
+    if is_dtensor(cand):
+        ctx = ctx.redistribute(cand.device_mesh, cand.placements)
+    return xdeepfm_logits(cfg, params,
+                          torch.cat([cand[:, None].to(ctx.dtype), ctx], 1))
 
 
 # ------------------------------------------------------------------ SASRec
@@ -202,9 +210,11 @@ def sasrec_encode(cfg: SASRecConfig, params: dict, seq: torch.Tensor
     package."""
     b, l = seq.shape
     d = cfg.embed_dim
-    x = params["item_emb"][seq] * (d ** 0.5) + params["pos_emb"][None, :l]
+    x = rows(params["item_emb"], seq) * (d ** 0.5) \
+        + params["pos_emb"][None, :l]
     valid = _valid(seq)
-    mask = _causal(l, seq.device)[None] & valid[:, None, :]
+    mask = replicated_like(_causal(l, seq.device), seq)[None] \
+        & valid[:, None, :]
     for blk in params["blocks"]:
         h = rms_norm(x, blk["ln1"])
         q, k, v = ((h @ blk[w]).reshape(b, l, cfg.n_heads, -1)
@@ -224,8 +234,10 @@ def sasrec_loss(cfg: SASRecConfig, params: dict, batch: dict):
     positive is an item: seq, pos, neg (B, L).  Returns (loss, the
     positives' f32 scores)."""
     h = sasrec_encode(cfg, params, batch["seq"])
-    sp = (h * params["item_emb"][batch["pos"]]).sum(-1).to(torch.float32)
-    sn = (h * params["item_emb"][batch["neg"]]).sum(-1).to(torch.float32)
+    sp = (h * rows(params["item_emb"], batch["pos"])).sum(-1).to(
+        torch.float32)
+    sn = (h * rows(params["item_emb"], batch["neg"])).sum(-1).to(
+        torch.float32)
     m = _valid(batch["pos"]).to(torch.float32)
     loss = -(torch.log(torch.sigmoid(sp) + 1e-24)
              + torch.log(1 - torch.sigmoid(sn) + 1e-24)) * m
@@ -236,7 +248,7 @@ def sasrec_serve(cfg: SASRecConfig, params: dict, batch: dict
                  ) -> torch.Tensor:
     """Score each request's candidates: seq (B, L), cand (B, C) -> (B, C)."""
     h = sasrec_encode(cfg, params, batch["seq"])[:, -1]
-    ce = params["item_emb"][batch["cand"]]
+    ce = rows(params["item_emb"], batch["cand"])
     return torch.einsum("bd,bcd->bc", h, ce)
 
 
@@ -244,7 +256,7 @@ def sasrec_retrieval(cfg: SASRecConfig, params: dict, batch: dict
                      ) -> torch.Tensor:
     """One user, seq (1, L), against cand (C,) -> (C,) scores."""
     h = sasrec_encode(cfg, params, batch["seq"])[:, -1]       # (1, D)
-    ce = params["item_emb"][batch["cand"]]                     # (C, D)
+    ce = rows(params["item_emb"], batch["cand"])               # (C, D)
     return (h @ ce.T)[0]
 
 
@@ -287,7 +299,7 @@ def mind_interests(cfg: MINDConfig, params: dict, seq: torch.Tensor
     """Behavior-to-interest dynamic routing: seq (B, L) with L = seq_len ->
     (B, K, D).  The routing softmax is over interests; padded positions are
     masked after it.  The interests are the last iteration's."""
-    e = params["item_emb"][seq]                                # (B, L, D)
+    e = rows(params["item_emb"], seq)                        # (B, L, D)
     eh = e @ params["S"]
     valid = _valid(seq)
     b_logit = params["b_init"][None].expand(seq.shape[0], cfg.n_interests,
@@ -306,11 +318,11 @@ def mind_loss(cfg: MINDConfig, params: dict, batch: dict):
     (B,), neg (B, N).  The attention over interests is softmax(score ** 2)
     in f32.  Returns (loss, (B, 1 + N) f32 logits, the positive first)."""
     u = mind_interests(cfg, params, batch["seq"])              # (B, K, D)
-    pe = params["item_emb"][batch["pos"]]                      # (B, D)
+    pe = rows(params["item_emb"], batch["pos"])              # (B, D)
     att = torch.softmax(
         torch.einsum("bkd,bd->bk", u, pe).to(torch.float32) ** 2, -1)
     v_u = torch.einsum("bk,bkd->bd", att.to(u.dtype), u)       # (B, D)
-    ne = params["item_emb"][batch["neg"]]                      # (B, N, D)
+    ne = rows(params["item_emb"], batch["neg"])              # (B, N, D)
     sp = (v_u * pe).sum(-1, keepdim=True)
     sn = torch.einsum("bd,bnd->bn", v_u, ne)
     logits = torch.cat([sp, sn], -1).to(torch.float32)
@@ -320,14 +332,14 @@ def mind_loss(cfg: MINDConfig, params: dict, batch: dict):
 def mind_serve(cfg: MINDConfig, params: dict, batch: dict) -> torch.Tensor:
     """Max-over-interests scores of each request's candidates (B, C)."""
     u = mind_interests(cfg, params, batch["seq"])
-    ce = params["item_emb"][batch["cand"]]                     # (B, C, D)
+    ce = rows(params["item_emb"], batch["cand"])             # (B, C, D)
     return torch.einsum("bkd,bcd->bkc", u, ce).amax(1)
 
 
 def mind_retrieval(cfg: MINDConfig, params: dict, batch: dict
                    ) -> torch.Tensor:
     u = mind_interests(cfg, params, batch["seq"])              # (1, K, D)
-    ce = params["item_emb"][batch["cand"]]                     # (C, D)
+    ce = rows(params["item_emb"], batch["cand"])             # (C, D)
     return (u[0] @ ce.T).amax(0)                               # (C,)
 
 
@@ -375,7 +387,7 @@ def twotower_init(cfg: TwoTowerConfig, gen: torch.Generator) -> dict:
 
 def _tower(mlp: dict, table: torch.Tensor, offsets: torch.Tensor,
            idx: torch.Tensor) -> torch.Tensor:
-    e = table[idx + offsets[None, :]]
+    e = rows(table, idx + replicated_like(offsets, idx)[None, :])
     z = mlp_apply(mlp, e.reshape(e.shape[0], -1))
     return z / torch.linalg.vector_norm(z.to(torch.float32), dim=-1,
                                         keepdim=True).clamp_min(1e-6).to(z.dtype)
@@ -401,8 +413,31 @@ def twotower_loss(cfg: TwoTowerConfig, params: dict, batch: dict):
     u, i = twotower_embed(cfg, params, batch)
     logits = (u @ i.T).to(torch.float32) / cfg.temperature
     logits = logits - batch["logq"][None, :]
-    diag = torch.arange(u.shape[0], device=logits.device)
-    return -torch.log_softmax(logits, -1)[diag, diag].mean(), logits
+    return -_diagonal(torch.log_softmax(logits, -1)).mean(), logits
+
+
+def _diagonal(m: torch.Tensor) -> torch.Tensor:
+    """``m.diagonal()``; a DTensor ``m`` with its rows split takes each
+    rank's own diagonal entries (DTensor's rule would gather the whole
+    (B, B) matrix)."""
+    if not is_dtensor(m):
+        return m.diagonal()
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = m.device_mesh
+    split = tuple(p if p == Shard(0) else Replicate() for p in m.placements)
+    dims = [d for d, p in enumerate(split) if p == Shard(0)]
+
+    def local(ml):
+        r = 0
+        for d in dims:
+            r = r * mesh.size(d) + mesh.get_local_rank(d)
+        n = ml.shape[0]
+        return (ml[:, r * n:(r + 1) * n].diagonal(),)
+
+    return local_map(local, out_placements=(split,), in_placements=(split,),
+                     device_mesh=mesh, redistribute_inputs=True)(m)[0]
 
 
 def twotower_serve(cfg: TwoTowerConfig, params: dict, batch: dict):

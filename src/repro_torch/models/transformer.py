@@ -17,10 +17,13 @@ recomputed in the backward pass too).
 The mesh fields run over ``launch.mesh.current_mesh()`` (``use_mesh``):
 ``moe_expert_axis`` sends the FFN through the expert-parallel
 ``moe_ffn_sharded``; ``attn_seq_parallel`` with both act axes sends prefill
-and training attention through ``seq_parallel_attention``.  The residual
-stream is a plain global tensor, the same on every rank, so the JAX
-package's activation layout hints (``_constrain_act``) have no counterpart:
-they change no value.  Decode is unchanged: it never takes the
+and training attention through ``seq_parallel_attention``.  With plain
+tensors the residual stream is a global tensor, the same on every rank;
+with DTensor parameters and batch (the dry run's) it is a DTensor, and
+``_constrain_act`` pins its layout as the JAX package's activation hints
+do, the attention core runs on each rank's batch and head shards
+(``attention.sharded_attention``) and a sequence-split KV cache decodes
+split (``attention.sharded_decode``).  Decode never takes the
 sequence-parallel core.  The JAX package's
 model-sharded norm (``_norm_sharded``) computes the same norm from per-shard
 partial sums; here the norm is computed on the whole d_model.
@@ -32,12 +35,14 @@ from dataclasses import dataclass
 from functools import partial
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import attention_block
-from .layers import (dense_init, embed_init, layer_norm_nonparam, normal,
-                     rms_norm, softcap, torch_dtype)
+from .layers import (batch_split, dense_init, embed_init, is_dtensor,
+                     layer_norm_nonparam, normal, product, rms_norm, rows,
+                     softcap, torch_dtype, whole_last_dim)
 from .moe import moe_ffn, moe_ffn_sharded
 
 
@@ -135,6 +140,8 @@ def init_params(cfg: LMConfig, gen: torch.Generator) -> dict:
     def stack(shape, fan_in, experts=None):
         lead = (n,) if experts is None else (n, experts)
         out = torch.empty((*lead, *shape), dtype=dt, device=dev)
+        if is_fake(out):              # shapes only (``abstract_state``)
+            return out
         # one layer's (or one expert's) f32 draw at a time: one arctic
         # layer's w_gate drawn whole in f32 would be 17.8 GB
         for i in itertools.product(*map(range, lead)):
@@ -174,14 +181,16 @@ def init_params(cfg: LMConfig, gen: torch.Generator) -> dict:
 
 # ------------------------------------------------------------------ forward
 def _norm(cfg: LMConfig, x: torch.Tensor, w: torch.Tensor | None):
+    x = batch_split(x)      # a DTensor's d_model gathered for the norm
     if cfg.norm == "nonparam":
         return layer_norm_nonparam(x)
     return rms_norm(x, w)
 
 
 def _swiglu(x: torch.Tensor, w: dict) -> torch.Tensor:
-    return (torch.nn.functional.silu(x @ w["w_gate"]) * (x @ w["w_up"])) \
-        @ w["w_down"]
+    h = torch.nn.functional.silu(product(x, w["w_gate"])) \
+        * product(x, w["w_up"])
+    return product(h, w["w_down"])
 
 
 def _ffn(cfg: LMConfig, x: torch.Tensor, lw: dict):
@@ -205,6 +214,22 @@ def _ffn(cfg: LMConfig, x: torch.Tensor, lw: dict):
     if cfg.dense_residual:
         y = y + _swiglu(x, lw["dense"])
     return y, aux
+
+
+def _constrain_act(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """A DTensor residual stream laid out as the JAX package pins it: the
+    batch over ``act_batch_axes``, d_model over ``act_model_axis``, the
+    rest whole.  A plain tensor, or a config without the act axes, is left
+    as it is (it changes no value)."""
+    if not cfg.act_batch_axes or not is_dtensor(x):
+        return x
+    from ..launch.shardings import P, to_placements
+
+    spec = P(cfg.act_batch_axes, *([None] * (x.dim() - 2)),
+             cfg.act_model_axis)
+    want = to_placements(spec, x.device_mesh)
+    return x if tuple(x.placements) == want else x.redistribute(
+        x.device_mesh, want)
 
 
 def _layer_weights(params: dict, i: int) -> dict:
@@ -251,7 +276,7 @@ def _layer(cfg: LMConfig, x: torch.Tensor, lw: dict, i: int, *,
 
 
 def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor):
-    x = params["embed"][tokens]
+    x = rows(params["embed"], tokens)
     if cfg.embed_scale:
         x = (x.to(torch.float32) * (cfg.d_model ** 0.5)).to(x.dtype)
     return x
@@ -264,7 +289,7 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
     ``return_kv``, the stacked (L, B, S, Hkv, Dh) K and V for the cache.
     With ``remat`` and gradients on, each layer keeps only its input for
     the backward pass and is run again there."""
-    x = _embed(cfg, params, tokens)
+    x = _constrain_act(cfg, _embed(cfg, params, tokens))
     aux = 0.0
     ks, vs = [], []
     for i in range(cfg.n_layers):
@@ -275,6 +300,7 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
                                       preserve_rng_state=False)
         else:
             x, (k, v), a = layer(x, lw)
+        x = _constrain_act(cfg, x)
         aux = aux + a
         if return_kv:
             ks.append(k)
@@ -287,7 +313,7 @@ def forward(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
 
 def _unembed(cfg: LMConfig, params: dict, h: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return softcap(h @ w, cfg.final_softcap)
+    return softcap(product(h, w), cfg.final_softcap)
 
 
 def _ce_chunk(cfg: LMConfig, params: dict, h: torch.Tensor,
@@ -295,10 +321,35 @@ def _ce_chunk(cfg: LMConfig, params: dict, h: torch.Tensor,
     """(sum of the masked NLL, sum of the mask) over one chunk of positions,
     from f32 logits."""
     logits = _unembed(cfg, params, h).to(torch.float32)
+    if is_dtensor(logits):
+        return _nll_sums_sharded(logits, labels, mask)
+    return _nll_sums(logits, labels, mask)
+
+
+def _nll_sums(logits: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor):
     logz = torch.logsumexp(logits, -1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     m = mask.to(torch.float32)
     return ((logz - gold) * m).sum(), m.sum()
+
+
+def _nll_sums_sharded(logits, labels, mask):
+    """``_nll_sums`` of DTensors on each rank's rows: the vocab gathered
+    (``whole_last_dim``), the rows kept split as the batch is, each rank's
+    sums a Partial over the batch split.  (DTensor's own gather and its
+    backward would make a whole-batch tensor of the logits' size.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    logits = whole_last_dim(logits)
+    mesh = logits.device_mesh
+    split = tuple(p if p == Shard(0) else Replicate()
+                  for p in logits.placements)
+    sums = tuple(Partial() if p == Shard(0) else Replicate() for p in split)
+    return local_map(_nll_sums, out_placements=(sums, sums),
+                     in_placements=(split, split, split), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels, mask)
 
 
 def chunked_ce_loss(cfg: LMConfig, params: dict, h: torch.Tensor,
@@ -362,4 +413,5 @@ def decode_step(cfg: LMConfig, params: dict, cache: dict,
                          cache_len=cache_len)
     x = _norm(cfg, x, params["ln_final"])
     logits = _unembed(cfg, params, x)[:, 0].to(torch.float32)
-    return cache, logits.argmax(-1).to(torch.int32), logits
+    return (cache, whole_last_dim(logits).argmax(-1).to(torch.int32),
+            logits)

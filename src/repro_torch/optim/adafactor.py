@@ -19,12 +19,13 @@ recurse twice, down to one expert's matrix).  Functional, as
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
-from ..models.layers import torch_dtype
+from ..models.layers import is_dtensor, replicated_like, torch_dtype
 from ..tree import leaves, map_tree, unflatten
 from .adam import _device
 
@@ -73,27 +74,30 @@ def init_adafactor(cfg: AdafactorConfig, params) -> AdafactorState:
                           vc=map_tree(vc, params))
 
 
-def _update_leaf(cfg: AdafactorConfig, lr, p, g, mu, vr, vc):
-    """(new p, mu, vr, vc) of one leaf; a stacked leaf slice by slice."""
+def _update_leaf(cfg: AdafactorConfig, lr, p, g, mu, vr, vc,
+                 mean=torch.mean):
+    """(new p, mu, vr, vc) of one leaf; a stacked leaf slice by slice.
+    ``mean(x, dim=None, keepdim=False)`` takes every mean (the split-leaf
+    one in ``_split_update``)."""
     if p.dim() >= 3 and p.shape[0] >= 8:
-        outs = [_update_leaf(cfg, lr, p[i], g[i], mu[i], vr[i], vc[i])
+        outs = [_update_leaf(cfg, lr, p[i], g[i], mu[i], vr[i], vc[i], mean)
                 for i in range(p.shape[0])]
         return tuple(torch.stack([o[k] for o in outs]) for k in range(4))
     d = cfg.decay
     g = g.to(torch.float32)
     g2 = g.square() + cfg.eps
     if _factored(p):
-        vr = d * vr + (1 - d) * g2.mean(-1)
-        vc = d * vc + (1 - d) * g2.mean(-2)
+        vr = d * vr + (1 - d) * mean(g2, -1)
+        vc = d * vc + (1 - d) * mean(g2, -2)
         rfac = torch.rsqrt(
-            vr / vr.mean(-1, keepdim=True).clamp_min(cfg.eps) + cfg.eps)
+            vr / mean(vr, -1, keepdim=True).clamp_min(cfg.eps) + cfg.eps)
         cfac = torch.rsqrt(vc + cfg.eps)
         u = g * rfac[..., None] * cfac[..., None, :]
     else:
         vr = d * vr + (1 - d) * g2
         u = g * torch.rsqrt(vr + cfg.eps)
     # update clipping (RMS <= clip_threshold)
-    rms = torch.sqrt(u.square().mean() + 1e-30)
+    rms = torch.sqrt(mean(u.square()) + 1e-30)
     u = u / torch.clamp(rms / cfg.clip_threshold, min=1.0)
     if cfg.b1 > 0:
         mu = (cfg.b1 * mu.to(torch.float32) + (1 - cfg.b1) * u).to(mu.dtype)
@@ -102,13 +106,57 @@ def _update_leaf(cfg: AdafactorConfig, lr, p, g, mu, vr, vc):
     return (p.to(torch.float32) - delta).to(p.dtype), mu, vr, vc
 
 
+def _split_update(cfg: AdafactorConfig, lr, p, g, mu, vr, vc):
+    """``_update_leaf`` of DTensor leaves on each rank's shards, as a
+    sharded optimizer runs it: the slicing follows the global shape, each
+    rank walks its own slices, and a mean over a dim that the mesh splits
+    is the sum of the ranks' local sums (``launch.mesh.psum``) over the
+    dim's global size.  (Indexing a DTensor along a split dim would gather
+    it: every rank each whole stacked expert weight.)"""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..launch.mesh import psum
+
+    mesh = p.device_mesh
+    shape = tuple(p.shape)
+
+    def split_mean(first, x, dim=None, keepdim=False):
+        # x's dims are the leaf's from ``first`` on (a row factor's too:
+        # it drops the leaf's last dim)
+        dims = range(x.dim()) if dim is None else (dim % x.dim(),)
+        leaf_dims = {first + i for i in dims}
+        ax = tuple(n for n, pl in zip(mesh.mesh_dim_names, p.placements)
+                   if isinstance(pl, Shard) and pl.dim in leaf_dims)
+        s = x.sum() if dim is None else x.sum(dim, keepdim=keepdim)
+        return ((psum(s, ax, mesh) if ax else s)
+                / math.prod(shape[i] for i in leaf_dims))
+
+    def walk(lr_l, xs, first):
+        if len(shape) - first >= 3 and shape[first] >= 8:
+            outs = [walk(lr_l, [x[i] for x in xs], first + 1)
+                    for i in range(xs[0].shape[0])]
+            return tuple(torch.stack([o[k] for o in outs]) for k in range(4))
+        return _update_leaf(cfg, lr_l, *xs,
+                            mean=lambda *a, **k: split_mean(first, *a, **k))
+
+    rep = (Replicate(),) * mesh.ndim
+    pls = tuple(tuple(t.placements) for t in (p, mu, vr, vc))
+    if not is_dtensor(lr):
+        lr = replicated_like(torch.as_tensor(lr, device=p.device), p)
+    return local_map(lambda lr_l, *xs: walk(lr_l, xs, 0), out_placements=pls,
+                     in_placements=(rep, pls[0], pls[0], *pls[1:]),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        lr, p, g, mu, vr, vc)
+
+
 def adafactor_update(cfg: AdafactorConfig, params, grads,
                      state: AdafactorState):
     """One Adafactor step; returns (new params, new state, metrics)."""
     step = state.step + 1
     warm = (step.to(torch.float32) / max(cfg.warmup_steps, 1)).clamp(max=1.0)
     lr = cfg.lr * warm
-    out = [_update_leaf(cfg, lr, *x)
+    out = [(_split_update if is_dtensor(x[0]) else _update_leaf)(cfg, lr, *x)
            for x in zip(leaves(params), leaves(grads), leaves(state.mu),
                         leaves(state.vr), leaves(state.vc), strict=True)]
     return (unflatten(params, [o[0] for o in out]),

@@ -89,6 +89,77 @@ def test_multi_token_waves_match_reference_engine(stores, small_dataset, op):
         np.testing.assert_array_equal(g, port.engine.host_query(t, op=op))
 
 
+def _host_waves(ds):
+    """A term wave and a contains wave (AND and OR) over the dataset."""
+    from repro_torch.core.tokenizer import term_query_tokens
+    needles = [t[1:12] for t in present_id_queries(ds, 7, 20)] \
+        + ["request_id=", "packetresponder", "zzqqxxyyzz", "a"]
+    contains = [contains_query_tokens(n) for n in needles] + [[]]
+    terms = [term_query_tokens(t) for t in _terms(ds)]
+    return [("term", terms, "and"), ("contains", contains, "and"),
+            ("contains", contains, "or")]
+
+
+@pytest.fixture(scope="module")
+def host_stores(small_dataset, tmp_path_factory):
+    """Durable host-extraction stores of both packages over the dataset
+    (the ``stores`` fixture's layout: the same segments), and the
+    reference's answers to ``_host_waves``."""
+    d = tmp_path_factory.mktemp("host_extract")
+    kw = dict(STORE_KW, extract_on_device=False)
+    port = DynaWarpStore(device="cpu", path=str(d / "port"), **kw)
+    ref = RefStore(path=str(d / "ref"), **kw)
+    for st in (port, ref):
+        st.ingest(small_dataset.lines)
+        st.finish()
+    assert ref.engine._extract_on_device is False
+    want = [ref.engine.query_batch(w, op=op)
+            for _, w, op in _host_waves(small_dataset)]
+    return port, want, str(d / "port")
+
+
+@pytest.mark.parametrize("how", ["built", "reopened", "clone", "sharded"])
+def test_host_extraction_waves_match_device_mode_and_reference(
+        how, stores, host_stores, small_dataset, monkeypatch):
+    """``extract_on_device=False``: term and contains waves decode on the
+    host, never call the device compaction, and answer as the reference's
+    host mode and the port's device mode do; the mode survives a reopen,
+    a clone and a sharded engine (3 logical CPU shards)."""
+    from repro_torch.core import distributed, query_engine
+    dev_port = stores[0]
+    port, want, path = host_stores
+    if how == "reopened":
+        port = DynaWarpStore.open(path, device="cpu",
+                                  extract_on_device=False)
+    elif how == "sharded":
+        monkeypatch.setattr(distributed, "default_shard_devices",
+                            lambda shard_axes=("data",), device=None:
+                            [torch.device("cpu")] * 3)
+        port = DynaWarpStore.open(path, device="cpu", shard_axes=("data",),
+                                  extract_on_device=False)
+        assert port.engine.n_shards == 3
+    eng = port.engine.clone() if how == "clone" else port.engine
+    assert port.extract_on_device is False and eng._extract_on_device is False
+
+    waves = _host_waves(small_dataset)
+    device_mode = [dev_port.engine.query_batch(w, op=op)
+                   for _, w, op in waves]
+
+    def no_device_compaction(*a, **kw):
+        raise AssertionError("bitmap_extract ran in host mode")
+
+    monkeypatch.setattr(query_engine, "bitmap_extract_ragged",
+                        no_device_compaction)
+    for (kind, wave, op), w_ref, dev in zip(waves, want, device_mode):
+        got = eng.query_batch(wave, op=op)
+        assert len(got) == len(wave) == len(w_ref) == len(dev)
+        for g, d, r in zip(got, dev, w_ref):
+            assert g.dtype == np.int64
+            np.testing.assert_array_equal(g, d)
+            np.testing.assert_array_equal(g, r)
+        assert sum(len(g) > 0 for g in got) >= 5, kind
+
+
 @pytest.mark.parametrize("kw", [{}, {"include_planes": True}])
 def test_engine_index_bytes_match_reference(stores, kw):
     port, ref, _ = stores
@@ -168,6 +239,7 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.optim.adafactor, repro_torch.optim.compress, "
             "repro_torch.data, repro_torch.data.pipeline, "
             "repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.launch.dryrun, "
             "repro_torch.launch.checkpoint, repro_torch.launch.elastic, "
             "repro_torch.models.gnn, repro_torch.examples.train_lm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -244,8 +316,7 @@ def test_reference_keywords_accepted_at_default(kw, default, other,
                                                 tmp_path):
     """Each keyword has the reference's default and constructs a store at
     that default.  At its other value a durable store of each package
-    answers the same, before and after a reopen (``extract_on_device=False``
-    still raises "not yet ported")."""
+    answers the same, before and after a reopen."""
     import inspect
     assert inspect.signature(DynaWarpStore).parameters[kw].default \
         == inspect.signature(RefStore).parameters[kw].default == default
@@ -253,11 +324,6 @@ def test_reference_keywords_accepted_at_default(kw, default, other,
     st.ingest([f"line {i} id=abc{i % 7}" for i in range(40)])
     st.finish()
     assert st.query_term("abc3").matches == list(range(3, 40, 7))
-    if kw == "extract_on_device":
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            DynaWarpStore(device="cpu", **{kw: other})
-        DynaWarpStore(device="cpu", extract_on_device=True)
-        return
     lines = [f"line {i} id=abc{i % 7} host=h{i % 13}" for i in range(600)]
     terms = [f"abc{k}" for k in range(7)] + ["h5", "line"]
     answers = []
@@ -272,7 +338,8 @@ def test_reference_keywords_accepted_at_default(kw, default, other,
             assert s.wait_compaction(timeout=300) > 0
         got = [s.query_term(t).matches for t in terms]
         s.close()
-        re = cls.open(d, **({kw: other} if kw == "mmap" else {}), **dev)
+        re = cls.open(d, **({kw: other} if kw in ("mmap", "extract_on_device")
+                            else {}), **dev)
         assert getattr(re, kw) == other or kw in ("fsync",
                                                   "background_compact")
         assert [re.query_term(t).matches for t in terms] == got
