@@ -3617,7 +3617,7 @@ class PerQueryServer:
     def submit(self, tokens):
         from repro_torch.core.serving import WaveTicket, _as_fp
         ticket = WaveTicket([_as_fp(t) for t in tokens], "and")
-        ticket.t_submit = time.monotonic()
+        ticket.t_submit = time.perf_counter()
         self._q.put(ticket)
         return ticket
 
@@ -3651,7 +3651,7 @@ def open_loop(np, submit, token_lists, seed) -> tuple[dict, list]:
     arrival and from the submit, and each request's (query index,
     ticket)."""
     import threading
-    t_start = time.monotonic() + 0.05
+    t_start = time.perf_counter() + 0.05
     collected = [[] for _ in range(LOAD_CLIENTS)]
 
     def client(ci: int) -> None:
@@ -3659,7 +3659,7 @@ def open_loop(np, submit, token_lists, seed) -> tuple[dict, list]:
         arrivals = t_start + np.cumsum(
             rng.exponential(1.0 / LOAD_RATE, size=LOAD_PER_CLIENT))
         for at in arrivals:
-            now = time.monotonic()
+            now = time.perf_counter()
             if at > now:
                 time.sleep(at - now)
             qi = int(rng.integers(len(token_lists)))

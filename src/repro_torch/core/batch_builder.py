@@ -29,6 +29,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels.token_hash.ops import token_fingerprints
 from .hashing import (np_posting_element_hash, np_token_fingerprints,
                       np_window_fingerprints)
@@ -44,17 +45,22 @@ def token_matrix_fingerprints(mat: np.ndarray, lengths: np.ndarray,
     CPU; on a CUDA device the ``token_hash`` kernel, fed by one
     host-to-device copy (matrix and lengths share one buffer), one launch
     and one copy back."""
+    sp = trace.ON and trace.begin("ingest.token_hash")
     if device.type == "cpu":
-        return np_token_fingerprints(mat, lengths)
-    n, l = mat.shape
-    head = -(-mat.size // 4) * 4          # the lengths start 4-byte aligned
-    buf = np.zeros(head + 4 * n, np.uint8)
-    buf[:mat.size] = mat.reshape(-1)
-    buf[head:] = np.ascontiguousarray(lengths, np.int32).view(np.uint8)
-    dev = torch.from_numpy(buf).to(device)
-    fps = token_fingerprints(dev[:mat.size].view(n, l),
-                             dev[head:].view(torch.int32))
-    return fps.cpu().numpy().view(np.uint32)
+        out = np_token_fingerprints(mat, lengths)
+    else:
+        n, l = mat.shape
+        head = -(-mat.size // 4) * 4      # the lengths start 4-byte aligned
+        buf = np.zeros(head + 4 * n, np.uint8)
+        buf[:mat.size] = mat.reshape(-1)
+        buf[head:] = np.ascontiguousarray(lengths, np.int32).view(np.uint8)
+        dev = torch.from_numpy(buf).to(device)
+        fps = token_fingerprints(dev[:mat.size].view(n, l),
+                                 dev[head:].view(torch.int32))
+        out = fps.cpu().numpy().view(np.uint32)
+    if sp:
+        trace.end(sp)
+    return out
 
 
 def fingerprint_tokens(tokens: list[bytes], *, device: torch.device
@@ -129,6 +135,7 @@ def _window_fps_bucketed(bu8: np.ndarray, starts: np.ndarray,
     (fp_parts, ln_parts) per width.  Runs are grouped into one bucket for
     everything <= _NGRAM_PACK_CAP plus a power-of-two width bucket per
     longer size class, each packed at its own width."""
+    sp = trace.ON and trace.begin("ingest.ngram")
     # frexp exponent == bit_length for positive ints (exact below 2^53)
     tier = np.where(lens <= _NGRAM_PACK_CAP, 0,
                     np.frexp(lens.astype(np.float64))[1])
@@ -140,6 +147,8 @@ def _window_fps_bucketed(bu8: np.ndarray, starts: np.ndarray,
             rows, fps = np_window_fingerprints(mat, cl, n)
             fp_parts.append(fps)
             ln_parts.append(rl[rows])
+    if sp:
+        trace.end(sp)
 
 
 def _fingerprint_lines_ascii(lowers: list[str], *, ngrams: bool,
@@ -200,13 +209,17 @@ def _split_unique_per_line(fps: np.ndarray, lns: np.ndarray,
     """One lexsort dedup over (line, fp) pairs -> per-line fp arrays.
     Chunks are copies, not views, so the LRU does not pin each batch's
     whole concatenated array via a single surviving cached line."""
+    sp = trace.ON and trace.begin("ingest.dedup")
     order = np.lexsort((fps, lns))
     fps, lns = fps[order], lns[order]
     keep = np.ones(fps.shape, dtype=bool)
     keep[1:] = (fps[1:] != fps[:-1]) | (lns[1:] != lns[:-1])
     fps, lns = fps[keep], lns[keep]
     counts = np.bincount(lns, minlength=n_lines)
-    return [c.copy() for c in np.split(fps, np.cumsum(counts)[:-1])]
+    out = [c.copy() for c in np.split(fps, np.cumsum(counts)[:-1])]
+    if sp:
+        trace.end(sp)
+    return out
 
 
 def fingerprint_lines_columnar(lines, *, ngrams: bool = True,
@@ -255,6 +268,7 @@ class LineFingerprinter:
 
     def fingerprint_lines(self, lines) -> tuple[np.ndarray, np.ndarray]:
         """(flat fps concatenated line-by-line, per-line token counts)."""
+        sp = trace.ON and trace.begin("ingest.tokenize")
         per_line: list[np.ndarray | None] = []
         miss_lines: list[str] = []
         miss_slots: dict[str, list[int]] = {}
@@ -302,6 +316,8 @@ class LineFingerprinter:
                            count=len(per_line))
         flat = (np.concatenate(per_line) if per_line
                 else np.empty(0, np.uint32))
+        if sp:
+            trace.end(sp)
         return flat, lens
 
 

@@ -50,6 +50,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from ..kernels.bitmap_extract.ops import bitmap_extract_ragged
 from ..kernels.bitset_ops.ops import bitset_reduce_ragged
@@ -144,9 +145,23 @@ class QueryEngine:
         live = np.flatnonzero(lens)
         if not live.size or not self.segments or self.n_postings == 0:
             return [np.empty(0, np.int64) for _ in range(n_queries)]
+        sp = trace.ON and trace.begin("engine.pack")
         fps = self._pack(flat, lens[live])
-        bitmaps, counts = self._fold(*self._planes(fps, lens[live]), op)
-        return self._extract(bitmaps, counts, live, n_queries)
+        if sp:
+            trace.end(sp)
+            sp = trace.begin("engine.planes")
+        planes = self._planes(fps, lens[live])
+        if sp:
+            trace.end(sp)
+            sp = trace.begin("engine.fold")
+        bitmaps, counts = self._fold(*planes, op)
+        if sp:
+            trace.end(sp)
+            sp = trace.begin("engine.extract")
+        out = self._extract(bitmaps, counts, live, n_queries)
+        if sp:
+            trace.end(sp)
+        return out
 
     # ------------------------------------------------------------ packing
     def _pack(self, flat: np.ndarray, lens: np.ndarray) -> np.ndarray:
@@ -343,8 +358,11 @@ class QueryEngine:
         union across segments, then AND/OR): the single-query fast path
         and the oracle for the device waves.  Decoded BIC posting lists go
         through the engine's LRU."""
+        sp = trace.ON and trace.begin("engine.host_query")
         fps = [_as_fp(t) for t in tokens]
         if not fps:
+            if sp:
+                trace.end(sp)
             return np.empty(0, np.int64)
         per_token = []
         for fp in fps:
@@ -360,4 +378,6 @@ class QueryEngine:
         for p in per_token[1:]:
             acc = (np.intersect1d(acc, p, assume_unique=True)
                    if op == "and" else np.union1d(acc, p))
+        if sp:
+            trace.end(sp)
         return acc.astype(np.int64)

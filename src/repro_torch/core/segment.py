@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import trace
 from .batch_builder import build_sealed
 from .immutable_sketch import ImmutableSketch, build_immutable
 from .mutable_sketch import MutableSketch, SealedContent
@@ -112,10 +113,13 @@ class SegmentWriter:
             raise ValueError("fps and postings must be parallel 1-D arrays")
         if fps.size == 0:
             return
+        sp = trace.ON and trace.begin("ingest.sketch_add")
         self._col_fps.append(fps)
         self._col_posts.append(postings)
         self._col_bytes += fps.nbytes + postings.nbytes
         self._col_version += 1
+        if sp:
+            trace.end(sp)
         if self.auto_spill and self._memory_bytes() > self.memory_limit:
             self.spill()
 
@@ -173,15 +177,17 @@ class SegmentWriter:
     def spill(self) -> None:
         """Seal the live content into a temporary segment (full
         fingerprints retained), then size-tier-compact the temporaries."""
+        sp = trace.ON and trace.begin("spill.seal")
         part = self._live_part()
-        if part is None:
-            return
-        self.temporaries.append(part)
-        self.n_spills += 1
-        self.temporaries, merges = tiered_merge(
-            self.temporaries, size_of=lambda p: len(p.fps),
-            merge=merge_sealed, fanout=self.compact_fanout)
-        self.n_compactions += merges
+        if part is not None:
+            self.temporaries.append(part)
+            self.n_spills += 1
+            self.temporaries, merges = tiered_merge(
+                self.temporaries, size_of=lambda p: len(p.fps),
+                merge=merge_sealed, fanout=self.compact_fanout)
+            self.n_compactions += merges
+        if sp:
+            trace.end(sp)
 
     # ------------------------------------------------------------- finish
     def finish(self) -> ImmutableSketch:

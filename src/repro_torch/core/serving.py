@@ -60,6 +60,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import trace
 from .query_engine import _as_fp
 from .tokenizer import contains_query_tokens, term_query_tokens
 
@@ -145,11 +146,14 @@ class WaveTicket:
 
     ``wait()`` blocks for the wave that serves it; ``t_done`` is
     stamped inside the wave (not at ``wait()`` return), so latency
-    percentiles measured from tickets are dispatch-accurate.
+    percentiles measured from tickets are dispatch-accurate.  Both stamps
+    are on :data:`repro_torch.trace.clock`, so they are the ends of the
+    ticket's spans.  ``trace_ctx`` is the submitting thread's
+    :func:`repro_torch.trace.context` while a recording runs.
     """
 
     __slots__ = ("fps", "op", "t_submit", "t_done", "wave_id", "via",
-                 "_event", "_result", "_error")
+                 "trace_ctx", "_event", "_result", "_error")
 
     def __init__(self, fps: list, op: str):
         self.fps = fps
@@ -158,6 +162,7 @@ class WaveTicket:
         self.t_done = 0.0
         self.wave_id = -1
         self.via = ""            # "host" | "device" once served
+        self.trace_ctx = None
         self._event = threading.Event()
         self._result = None
         self._error = None
@@ -168,19 +173,21 @@ class WaveTicket:
     def wait(self, timeout: float | None = None) -> np.ndarray:
         if not self._event.wait(timeout):
             raise TimeoutError(f"query not served within {timeout}s")
+        if trace.ON:
+            trace.record("serve.wake", self.t_done, trace.clock())
         if self._error is not None:
             raise self._error
         return self._result
 
     def _complete(self, result, wave_id: int, via: str) -> None:
-        self.t_done = time.monotonic()
+        self.t_done = trace.clock()
         self.wave_id = wave_id
         self.via = via
         self._result = result
         self._event.set()
 
     def _fail(self, err: BaseException, wave_id: int) -> None:
-        self.t_done = time.monotonic()
+        self.t_done = trace.clock()
         self.wave_id = wave_id
         self._error = err
         self._event.set()
@@ -311,7 +318,9 @@ class WaveScheduler:
                 self._cv.wait(timeout=0.05)
             if self._stop:
                 raise RuntimeError("scheduler is closed")
-            ticket.t_submit = time.monotonic()
+            ticket.t_submit = trace.clock()
+            if trace.ON:
+                ticket.trace_ctx = trace.context()
             self._groups.setdefault(key, deque()).append(ticket)
             self._n_pending += 1
             self._stats.submitted += 1
@@ -344,7 +353,7 @@ class WaveScheduler:
                     return
                 wave = None
                 if self._inflight < self.max_live_waves:
-                    wave = self._pop_wave(time.monotonic())
+                    wave = self._pop_wave(trace.clock())
                 if wave is not None:
                     self._inflight += 1
                     self._ready.append(wave)
@@ -360,7 +369,7 @@ class WaveScheduler:
         if self._inflight >= self.max_live_waves or not self._n_pending:
             return None
         oldest = min(dq[0].t_submit for dq in self._groups.values() if dq)
-        return max(oldest + self.flush_deadline_s - time.monotonic(), 1e-4)
+        return max(oldest + self.flush_deadline_s - trace.clock(), 1e-4)
 
     def _pop_wave(self, now: float):
         """Pick the flush-ready group: any group at/above the largest
@@ -398,17 +407,21 @@ class WaveScheduler:
     # --------------------------------------------------------------- workers
     def _worker_loop(self) -> None:
         while True:
+            sp = trace.ON and trace.begin("serve.worker_wait")
             with self._cv:
                 while not self._ready and not self._dispatch_done:
                     self._cv.wait()
-                if not self._ready and self._dispatch_done:
-                    return
-                wave = self._ready.popleft()
-                seq = self._wave_seq
-                self._wave_seq += 1
-                idx = seq % len(self._engines)
-                engine = self._engines[idx]
-                lock = self._engine_locks[idx]
+                wave = self._ready.popleft() if self._ready else None
+                if wave is not None:
+                    seq = self._wave_seq
+                    self._wave_seq += 1
+                    idx = seq % len(self._engines)
+                    engine = self._engines[idx]
+                    lock = self._engine_locks[idx]
+            if sp:
+                trace.end(sp)
+            if wave is None:            # drained and the dispatcher done
+                return
             try:
                 self._run_wave(wave, seq, idx, engine, lock)
             finally:
@@ -421,8 +434,22 @@ class WaveScheduler:
         n = len(tickets)
         q_bucket = self._q_bucket(n)
         use_host = self.cost_model.prefer_host(n, q_bucket)
+        via = "host" if use_host else "device"
+        sp = None
         try:
+            wait = trace.ON and trace.begin("serve.replica_wait")
             with lock:
+                if wait:
+                    trace.end(wait)
+                    sp = trace.begin("serve.wave", {"wave": seq, "via": via,
+                                                    "n": n,
+                                                    "bucket": q_bucket})
+                    # each ticket's wait, on its client's thread, ends as
+                    # its wave's engine call starts
+                    for t in tickets:
+                        if t.trace_ctx is not None:
+                            trace.record("serve.queue", t.t_submit, sp.start,
+                                         t.trace_ctx, {"wave": seq})
                 if use_host:
                     results = [engine.host_query(t.fps, op=op)
                                for t in tickets]
@@ -438,13 +465,16 @@ class WaveScheduler:
         except BaseException as e:
             for t in tickets:
                 t._fail(e, seq)
+            if sp:
+                trace.end(sp)
             with self._cv:
                 self._stats.failed += n
                 self._bump_wave_stats(seq, replica, n, q_bucket, use_host)
             return
-        via = "host" if use_host else "device"
         for t, r in zip(tickets, results):
             t._complete(r, seq, via)
+        if sp:
+            trace.end(sp)
         with self._cv:
             self._stats.completed += n
             self._bump_wave_stats(seq, replica, n, q_bucket, use_host)
@@ -540,30 +570,54 @@ class StoreServer:
             out.append(cand[cand < view.n_batches])
         return out
 
+    def _submit(self, token_lists, req) -> list[WaveTicket]:
+        """Submit each query's tokens; with a request span ``req`` open,
+        record its ``serve.submit``: from the call's start to the last
+        ticket's queueing."""
+        tickets = [self.scheduler.submit(toks) for toks in token_lists]
+        if req and tickets:
+            trace.record("serve.submit", req.start, tickets[-1].t_submit)
+        return tickets
+
     def query_term(self, term: str, *, timeout: float | None = None):
-        view = self._view
-        ticket = self.scheduler.submit(term_query_tokens(term))
-        cand, = self._served_candidates(view, [ticket], timeout)
-        return view._post_filter(cand, term, "term")
+        req = trace.ON and trace.begin("serve.request", request=True)
+        try:
+            view = self._view
+            tickets = self._submit([term_query_tokens(term)], req)
+            cand, = self._served_candidates(view, tickets, timeout)
+            return view._post_filter(cand, term, "term")
+        finally:
+            if req:
+                trace.end(req)
 
     def query_contains(self, term: str, *, timeout: float | None = None):
-        view = self._view
-        tokens = contains_query_tokens(term)
-        if not tokens:               # no indexable n-gram: scan the prefix
-            cand = np.arange(view.n_batches, dtype=np.int64)
+        req = trace.ON and trace.begin("serve.request", request=True)
+        try:
+            view = self._view
+            tokens = contains_query_tokens(term)
+            if not tokens:           # no indexable n-gram: scan the prefix
+                cand = np.arange(view.n_batches, dtype=np.int64)
+                return view._post_filter(cand, term, "contains")
+            tickets = self._submit([tokens], req)
+            cand, = self._served_candidates(view, tickets, timeout)
             return view._post_filter(cand, term, "contains")
-        ticket = self.scheduler.submit(tokens)
-        cand, = self._served_candidates(view, [ticket], timeout)
-        return view._post_filter(cand, term, "contains")
+        finally:
+            if req:
+                trace.end(req)
 
     def query_term_batch(self, terms: list[str], *,
                          timeout: float | None = None) -> list:
-        view = self._view
-        tickets = [self.scheduler.submit(term_query_tokens(t))
-                   for t in terms]
-        cands = self._served_candidates(view, tickets, timeout)
-        return [view._post_filter(c, t, "term")
-                for c, t in zip(cands, terms)]
+        req = trace.ON and trace.begin("serve.request", request=True)
+        try:
+            view = self._view
+            tickets = self._submit(
+                [term_query_tokens(t) for t in terms], req)
+            cands = self._served_candidates(view, tickets, timeout)
+            return [view._post_filter(c, t, "term")
+                    for c, t in zip(cands, terms)]
+        finally:
+            if req:
+                trace.end(req)
 
     @property
     def view(self):

@@ -28,6 +28,7 @@ from dataclasses import asdict, dataclass
 import numpy as np
 import torch
 
+from .. import trace
 from ..baselines.bloom import BloomPerBatch
 from ..baselines.csc import CSCSketch
 from ..baselines.inverted import InvertedIndex
@@ -202,7 +203,9 @@ class IngestStats:
     ingest_s: float = 0.0        # tokenize + index + buffer
     sketch_finish_s: float = 0.0
     data_finish_s: float = 0.0
-    publish_s: float = 0.0       # per-spill manifest publishes (durable)
+    # a durable spill's segment sync (_sync_segments(publish=True)):
+    # sketch build, segment file, manifest swap and engine rebuild
+    publish_s: float = 0.0
     data_bytes: int = 0
     index_bytes: int = 0
     raw_bytes: int = 0
@@ -224,6 +227,8 @@ class _BatchReader:
             if hit is not None:
                 self._batch_cache.move_to_end(b)
                 return hit
+        if trace.ON:
+            trace.count("batch_cache.loads")
         lines = decompress_batch(self.blobs[b])
         entry = (lines, [ln.lower() for ln in lines])
         with self._batch_cache_lock:
@@ -234,6 +239,7 @@ class _BatchReader:
 
     def _post_filter(self, candidates: np.ndarray, term: str,
                      mode: str) -> QueryResult:
+        sp = trace.ON and trace.begin("store.post_filter")
         term_l = term.lower()
         matches: list[int] = []
         true_batches = 0
@@ -248,6 +254,8 @@ class _BatchReader:
                     matches.append(base + i)
                     hit = True
             true_batches += hit
+        if sp:
+            trace.end(sp)
         return QueryResult(matches=matches,
                            candidate_batches=np.asarray(candidates),
                            true_batches=true_batches,
@@ -298,6 +306,7 @@ class LogStoreBase(_BatchReader):
 
     # ------------------------------------------------------------------ ingest
     def ingest(self, lines) -> None:
+        sp = trace.ON and trace.begin("store.ingest", request=True)
         t0 = time.perf_counter()
         for line in lines:
             self._buf.append(line)
@@ -306,6 +315,8 @@ class LogStoreBase(_BatchReader):
             if len(self._buf) >= self.batch_lines:
                 self._flush_batch()
         self.stats.ingest_s += time.perf_counter() - t0
+        if sp:
+            trace.end(sp)
 
     def _flush_batch(self) -> None:
         """Index + compress the buffered batch.  Indexing happens at flush
@@ -315,11 +326,14 @@ class LogStoreBase(_BatchReader):
         self._write_batch()
 
     def _write_batch(self) -> None:
+        sp = trace.ON and trace.begin("ingest.compress")
         blob = compress_batch(self._buf)
         self.blobs.append(blob)
         self.stats.data_bytes += len(blob)
         self.batch_start.append(self._n_lines)
         self._buf = []
+        if sp:
+            trace.end(sp)
 
     def finish(self) -> None:
         if self._finished:   # idempotent: a second finish() must not
@@ -558,7 +572,10 @@ class DynaWarpStore(LogStoreBase):
         flat, counts = self._fingerprinter.fingerprint_lines(lines)
         self.stats.n_tokens_indexed += int(counts.sum())
         # one posting per flush batch: the batch's fingerprint set suffices
+        sp = trace.ON and trace.begin("ingest.dedup")
         fps = np.unique(flat)
+        if sp:
+            trace.end(sp)
         posts = np.full(fps.shape, batch_id, np.int64)
         if self.mode in ("online", "segmented"):
             self._writer.add_fingerprint_batch(fps, posts)
@@ -595,6 +612,7 @@ class DynaWarpStore(LogStoreBase):
         from "since finish()" to "since the last spill".  A RAM store (or
         ``publish_per_spill=False``) just marks the segment view stale;
         the next :meth:`snapshot` or ``finish()`` re-syncs lazily."""
+        sp = trace.ON and trace.begin("spill", request=True)
         with self._seg_lock:
             self._writer.spill()
             self._spill_covered = len(self.blobs)
@@ -604,6 +622,8 @@ class DynaWarpStore(LogStoreBase):
                 self.stats.publish_s += time.perf_counter() - t0
             else:
                 self._segments_stale = True
+        if sp:
+            trace.end(sp)
 
     def _sync_segments(self, *, publish: bool) -> None:
         """Rebind ``self.segments`` (and the engine) to the writer's
@@ -620,10 +640,13 @@ class DynaWarpStore(LogStoreBase):
             for part in self._writer.temporaries:
                 sk = prev.get(id(part))
                 if sk is None:
+                    sp = trace.ON and trace.begin("spill.sketch_build")
                     sk = build_immutable(
                         part, sig_bits=self.sig_bits,
                         plane_budget_bytes=self.plane_budget)
                     sk.sealed_source = part
+                    if sp:
+                        trace.end(sp)
                 segs.append(sk)
                 new_map[id(part)] = sk
             replaced = [sk for pid, sk in prev.items() if pid not in new_map]
@@ -633,10 +656,13 @@ class DynaWarpStore(LogStoreBase):
             self._seg_by_part = new_map
             self._covered_batches = self._spill_covered
             self._segments_stale = False
+            sp = trace.ON and trace.begin("spill.engine_rebuild")
             for sk in replaced:
                 sk.drop_device_cache()
             if self.device_query:
                 self.engine = self._build_engine()
+            if sp:
+                trace.end(sp)
 
     def _seal_index(self) -> None:
         if self.mode == "segmented":
@@ -672,9 +698,13 @@ class DynaWarpStore(LogStoreBase):
 
     def finish(self) -> None:
         already = self._finished
+        sp = trace.ON and not already and trace.begin("store.finish",
+                                                      request=True)
         super().finish()
         if self.path is not None and not already:
             self._persist()
+        if sp:
+            trace.end(sp)
 
     def wait_compaction(self, timeout: float | None = None) -> int:
         """Drain the background compactor (no-op without one); returns its
@@ -792,6 +822,7 @@ class DynaWarpStore(LogStoreBase):
             for seg in segments:
                 if seg.durable_id is None:
                     self._save_segment(seg, next_gen)
+            sp = trace.ON and trace.begin("spill.manifest_swap")
             writer = None
             if self.mode in ("online", "segmented"):
                 writer = dict(n_spills=self._writer.n_spills,
@@ -825,11 +856,14 @@ class DynaWarpStore(LogStoreBase):
             self._manifest_gen = next_gen
             _gc_orphan_files(self.path,
                              {seg._durable_file for seg in segments})
+            if sp:
+                trace.end(sp)
 
     def _save_segment(self, seg, gen: int) -> None:
         """Write one segment as a flat file (planes + sealed source
         included) and stamp its durable id — file path + generation, the
         process-global device-cache key."""
+        sp = trace.ON and trace.begin("spill.segment_write")
         self._seg_seq += 1
         fname = f"seg-{self._seg_seq:06d}.dwp"
         fpath = os.path.join(self.path, fname)
@@ -838,6 +872,8 @@ class DynaWarpStore(LogStoreBase):
         seg._durable_gen = gen
         seg._durable_bytes = nbytes
         seg.durable_id = f"{os.path.abspath(fpath)}@g{gen}"
+        if sp:
+            trace.end(sp)
 
     def _swap_manifest(self, manifest: dict) -> None:
         """Atomic manifest publish (tmp + ``os.replace``).  Everything
